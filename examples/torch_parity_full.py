@@ -36,11 +36,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from octree_slam_tpu.config import SLAMConfig  # noqa: E402
-from octree_slam_tpu.utils.metrics import ate_rmse  # noqa: E402
-from octree_slam_tpu_torch import convert, pipeline  # noqa: E402
+from octree_slam_tpu_torch import SLAMConfig, convert, pipeline  # noqa: E402
 from octree_slam_tpu_torch.sensor import sources, tracking  # noqa: E402
 from octree_slam_tpu_torch.map import morton  # noqa: E402
+from octree_slam_tpu_torch.utils.metrics import ate_rmse  # noqa: E402
 
 
 def bench_config(scale: int) -> SLAMConfig:
@@ -66,10 +65,10 @@ def orbit_frames(cfg, n, step_angle, use_jax):
               for g in poses]
         return [(np.asarray(f.depth), np.asarray(f.color), np.asarray(g))
                 for f, g in zip(fr, poses)]
-    scene = sources.default_scene()
+    scene = sources.default_scene("cpu")
     out = []
     for i in range(n):
-        gt = sources.orbit_pose(i * step_angle, radius=2.0)
+        gt = sources.orbit_pose(i * step_angle, radius=2.0, device="cpu")
         f = sources.render_frame(scene, gt, cfg.focal_x, cfg.focal_y,
                                  width=cfg.width, height=cfg.height)
         out.append((f.depth.numpy().astype(np.uint16), f.color.numpy(),
@@ -113,7 +112,7 @@ def _first_divergence(jstate_before, jpyr, jpose, depth, color, cfg):
     import jax
     import jax.numpy as jnp
     from octree_slam_tpu.map import morton as jmorton
-    f = convert.frame_from_numpy(depth, color)
+    f = convert.frame_from_numpy(depth, color, device="cpu")
     tpyr = tracking.build_pyramid(f.depth, f.color, cfg)
     for lvl, (jl, tl) in enumerate(zip(jpyr, tpyr)):
         jv, tv = np.asarray(jl.vertex), tl.vertex.numpy()
@@ -131,7 +130,7 @@ def _first_divergence(jstate_before, jpyr, jpose, depth, color, cfg):
             d = np.abs(jv[fin] - tv[fin]).max()
             return (f"pyramid level {lvl}: vertex map differs by up to "
                     f"{d:.3g} m (float rounding of the backprojection)")
-    tstate = convert.state_from_numpy(jstate_before, cfg)
+    tstate = convert.state_from_numpy(jstate_before, cfg, device="cpu")
     T, _ = tracking.track(list(tstate.last_pyramid), tpyr, cfg)
     T = torch.where(tstate.initialized, T, torch.eye(4))
     tpose = (tstate.pose @ T).numpy()
@@ -161,8 +160,13 @@ def run_jax(cfg, frames, n_warmup):
     import jax
     import jax.numpy as jnp
     from octree_slam_tpu import pipeline as jpipeline
+    from octree_slam_tpu.config import SLAMConfig as JaxConfig
     from octree_slam_tpu.core.types import Frame
-    jcfg = dataclasses.replace(cfg, use_dense_mips=False)  # splat never reads it
+    # the JAX package's own config, field for field; the splat never reads
+    # the dense mips
+    jcfg = dataclasses.replace(JaxConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
+        use_dense_mips=False)
     step = jax.jit(lambda s, f: jpipeline.step(s, f, jcfg))
     state = jpipeline.init_state(jcfg, initial_pose=jnp.asarray(frames[0][2]))
     est, diag = [], []
@@ -172,8 +176,9 @@ def run_jax(cfg, frames, n_warmup):
         state, out = step(state, f)
         if i >= n_warmup:
             est.append(np.asarray(out.pose))
-        ts, to = pipeline.step(convert.state_from_numpy(before, cfg),
-                               convert.frame_from_numpy(d, c), cfg)
+        ts, to = pipeline.step(
+            convert.state_from_numpy(before, cfg, device="cpu"),
+            convert.frame_from_numpy(d, c, device="cpu"), cfg)
         jk = _leaf_keys(state.leaves.keys, out.map_leaves)
         tk = _leaf_keys(ts.leaves.keys, to.map_leaves)
         row = {"frame": i, "leaf_keys_differ": len(jk ^ tk),

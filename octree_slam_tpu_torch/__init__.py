@@ -2,10 +2,9 @@
 
 A second package beside the JAX reference `octree_slam_tpu`, laid out file
 for file opposite it (each module's docstring names its counterpart). It
-imports torch and numpy, never jax; the only modules it takes from the
-reference package are the two that are free of jax: `config.SLAMConfig`
-(so one config object drives both packages and their capacities and node
-indices line up) and `utils.metrics`.
+imports torch and numpy, never jax, and nothing of the reference package:
+it keeps its own copies of what it needs from there (`config.SLAMConfig`,
+field for field the reference's, and `utils.metrics.ate_rmse`).
 
 The slice covers `pipeline.init_state` and `pipeline.step` for
 render="splat" and render="none". Both sensor stencils of the reference
@@ -14,10 +13,15 @@ CUDA kernels for sm_90a (`csrc/sensor_stencils.cu`, bound in
 `sensor/cuda_ops.py`); every other op is plain PyTorch. On CPU tensors the
 kernel wrappers run their plain PyTorch versions instead.
 
+The entry points that make tensors (`pipeline.init_state`, `svo.create`,
+`splat.create_leaf_list`, the `sources` constructors and the `convert`
+readers) put them on the card unless the caller names another device, as
+the CPU tests do; without a card they raise.
+
 Config branches outside the slice raise NotImplementedError (see
 `pipeline.check_supported`).
 """
 
-from octree_slam_tpu.config import SLAMConfig
+from octree_slam_tpu_torch.config import SLAMConfig
 
 __all__ = ["SLAMConfig"]

@@ -38,10 +38,12 @@ NVCC_FLAGS = (
 BUILD_INFO: dict = {}
 
 _lib = None
+# launcher name -> its ctypes function object in _lib
+_launchers: dict = {}
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.h"))
 
 
 def find_nvcc() -> str:
@@ -60,11 +62,11 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile the kernels if the cached library is missing or stale;
-    returns the library's path."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernel sources in `csrc` if their cached library is
+    missing or stale; returns the library's path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     lib_path = BUILD_DIR / f"liboslam_kernels-{h.hexdigest()[:16]}.so"
@@ -76,7 +78,7 @@ def build() -> Path:
     nvcc = find_nvcc()
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+           *[str(s) for s in _sources(csrc) if s.suffix == ".cu"]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -91,22 +93,36 @@ def build() -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use), with every
-    function's argtypes and restype declared."""
+def load(lib_path: Path) -> ctypes.CDLL:
+    """Make the library at `lib_path` the one the wrappers launch, with
+    every function's argtypes and restype declared."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, f, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_double)
-        lib.oslam_bilateral7x7.argtypes = [p, p, i, i, i, d, f, p]
-        lib.oslam_bilateral7x7.restype = i
-        lib.oslam_gated_subsample5x5.argtypes = [p, p, i, i, i, f, p]
-        lib.oslam_gated_subsample5x5.restype = i
-        lib.oslam_error_string.argtypes = [i]
-        lib.oslam_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+    lib.oslam_bilateral7x7.argtypes = [p, p, i, i, i, d, f, p]
+    lib.oslam_bilateral7x7.restype = i
+    lib.oslam_gated_pyramid5x5.argtypes = [p, p, p, i, i, i, f, i, p]
+    lib.oslam_gated_pyramid5x5.restype = i
+    lib.oslam_error_string.argtypes = [i]
+    lib.oslam_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    _launchers.clear()
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from `csrc/` and loaded on first
+    use."""
+    return _lib if _lib is not None else load(build())
+
+
+def launcher(kernel: str):
+    """The ctypes function object of `kernel`'s launcher, `oslam_<kernel>`,
+    held after its first lookup."""
+    fn = _launchers.get(kernel)
+    if fn is None:
+        fn = _launchers[kernel] = getattr(library(), f"oslam_{kernel}")
+    return fn
 
 
 def check(err: int, kernel: str) -> None:

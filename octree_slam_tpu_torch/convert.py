@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from octree_slam_tpu.config import SLAMConfig
+from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame, PyramidLevel
 from octree_slam_tpu_torch.map.svo import SVONodePool
 from octree_slam_tpu_torch.pipeline import SLAMState
@@ -37,7 +37,7 @@ def _expect_len(name: str, arr, n: int) -> None:
                          f"config says {n}")
 
 
-def state_from_numpy(np_tree, cfg: SLAMConfig, device="cpu") -> SLAMState:
+def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
     """Port state from a reference SLAMState whose leaves are numpy
     arrays. Capacities must match `cfg`; state of an unported feature
     (directory cache, saturation mask, keyframe anchor) is rejected."""
@@ -101,7 +101,7 @@ def state_to_numpy(state: SLAMState) -> dict:
 
 
 def frame_from_numpy(depth: np.ndarray, color: np.ndarray, timestamp=0.0,
-                     device="cpu") -> Frame:
+                     device="cuda") -> Frame:
     """A port Frame from u16 depth [H, W] and u8 colour [H, W, 3]."""
     return Frame(depth=_t(depth, device), color=_t(color, device),
                  timestamp=torch.tensor(float(np.asarray(timestamp)),

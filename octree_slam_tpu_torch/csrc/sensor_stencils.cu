@@ -3,26 +3,47 @@
 // Replaces the two Pallas TPU kernels built by _window_call in
 // octree_slam_tpu/sensor/pallas_ops.py (pl.pallas_call at :112):
 //
-//   bilateral7x7        <- pallas_ops.bilateral (:149), kind "bilateral"
-//   gated_subsample5x5  <- pallas_ops.gated_window_mean (:160), kind "gated",
-//                          plus the caller's decimation in
-//                          image_ops.subsample_depth (:129-133)
+//   bilateral7x7      <- pallas_ops.bilateral (:149), kind "bilateral"
+//   gated_pyramid5x5  <- pallas_ops.gated_window_mean (:160), kind "gated",
+//                        plus the caller's decimation in
+//                        image_ops.subsample_depth (:129-133), for one or
+//                        two pyramid levels in one launch
 //
-// What bounds them on an H100: each reads and writes a few MB (a 640x480
-// int32 plane is 1.2 MB), far below what 3.35 TB/s makes expensive, so at
-// the pyramid's sizes they are bound by launch latency and, for the
-// bilateral, by its 49 expf per pixel. The bilateral stages a 16x16 tile
-// plus a 3-pixel halo in shared memory so each input pixel is read from
-// device memory about 1.9 times instead of 49; the gated subsample computes
-// only the kept (2y, 2x) pixels (a quarter of the full-resolution work the
-// TPU kernel did) straight from the L1/L2-cached input.
+// What bounds them on an H100. The bilateral does 49 exp-weighted taps per
+// pixel and moves 2.5 MB at 480x640: it is bound by instruction issue (about
+// 15 instructions a tap, one of them the MUFU exp2 inside expf) and by the
+// latency of each tap's dependent chain, not by memory. Its design cuts
+// everything around the taps and keeps many taps in flight: each thread
+// computes a run of 2 outputs along x and keeps the 10 neighbour values of
+// one window row in registers (five 8-byte shared loads per row and one
+// 16-byte load of the row's spatial weights, about 0.4 shared loads per
+// tap); it forms the 14 exp arguments of a row before any exp, so they
+// issue back to back; the spatial weights sit in registers, indexed by |dx|
+// at compile time; blocks whose window lies inside the image run a variant
+// with no bounds test; the tile is staged with 16-byte loads, every load of
+// a thread issued before the first store, and no per-element divide;
+// 32x16-output blocks make one wave at 480x640 (600 blocks of 256 threads,
+// all resident at once).
+//
+// The gated pyramid moves 1.6 MB for two levels and is bound by latency:
+// launch, the first load from device memory, one barrier. One launch makes
+// both levels. Each block stages the L0 region it needs in shared memory,
+// computes its L1 tile plus a 2-pixel L1 halo there (neighbouring blocks
+// recompute the halo, bit for bit the same), writes the L1 tile, and
+// computes its L2 tile from shared memory, so L1 never goes through device
+// memory on its way to L2. Only the kept (2y, 2x) pixels are computed, not
+// the full-resolution pass the TPU kernel decimated afterwards. Blocks of
+// 512 threads give each thread at most one L1 pixel (each 5x5 mean is a
+// serial chain of adds) and one pass of staging loads.
 //
 // Float semantics follow the plain PyTorch versions in sensor/cuda_ops.py
-// term by term: the same tap order (dy outer, dx inner), the same
-// expression for the weight, IEEE division, rintf (round half to even, as
-// torch.round), truncation toward zero for the subsample. Build with
-// --fmad=false so s1 + nb * wgt rounds twice like the plain version, and
-// without --use_fast_math (expf, not __expf).
+// term by term: the same tap order for each output (dy outer, dx inner),
+// the same expression for the weight, IEEE division, rintf (round half to
+// even, as torch.round), truncation toward zero for the subsample. Build
+// with --fmad=false so s1 + nb * wgt rounds twice like the plain version,
+// and without --use_fast_math (expf, not __expf). Out-of-image taps are
+// decided by coordinate: depth 0 inside the image is data, so staged
+// padding (0) is never taken for a sentinel.
 //
 // Interface: extern "C" launchers taking raw device pointers, sizes and a
 // cudaStream_t; each returns cudaGetLastError() after its launch. Loaded
@@ -34,84 +55,223 @@
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kHalf = 3;                     // 7x7 window
-constexpr int kSpan = kTile + 2 * kHalf;     // 22 staged rows / columns
-constexpr int kTaps = (2 * kHalf + 1) * (2 * kHalf + 1);
-constexpr float kOutside = -1.0f;            // depth is never negative
+// Stage rows [gy0, gy0 + rows) (rows <= kRows) and the kGroups 4-column
+// groups from column gx0 (a multiple of 4) of an int32 plane as float into
+// `tile` (row stride kStride floats, 16-byte aligned). Each of the block's
+// kThreads threads takes one group in kThreads / kGroups rows per pass and
+// issues every load before its first shared store, so the block waits for
+// device memory once. With `vec` (W % 4 == 0 and a 16-byte aligned plane)
+// a group lies wholly inside or outside the image and is one 16-byte load.
+// Entries outside the image are 0; readers mask them by coordinate.
+template <int kRows, int kGroups, int kStride, int kThreads>
+__device__ __forceinline__ void stage(float* __restrict__ tile,
+                                      const int32_t* __restrict__ src,
+                                      int H, int W, int gy0, int gx0,
+                                      int rows, bool vec) {
+  constexpr int kPerPass = kThreads / kGroups;
+  constexpr int kPasses = (kRows + kPerPass - 1) / kPerPass;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int tr = tid / kGroups, tg = tid - tr * kGroups;   // once a thread
+  const int gx = gx0 + 4 * tg;
+  const bool active = tr < kPerPass;
+  int4 q[kPasses];
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int gy = gy0 + tr + k * kPerPass;
+    q[k] = make_int4(0, 0, 0, 0);
+    if (!active || tr + k * kPerPass >= rows || gy < 0 || gy >= H) continue;
+    const int32_t* p = src + (size_t)gy * W;
+    if (vec) {
+      if (gx >= 0 && gx < W)
+        q[k] = __ldg(reinterpret_cast<const int4*>(p + gx));
+    } else {
+      if (gx >= 0 && gx < W) q[k].x = __ldg(p + gx);
+      if (gx + 1 >= 0 && gx + 1 < W) q[k].y = __ldg(p + gx + 1);
+      if (gx + 2 >= 0 && gx + 2 < W) q[k].z = __ldg(p + gx + 2);
+      if (gx + 3 >= 0 && gx + 3 < W) q[k].w = __ldg(p + gx + 3);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int r = tr + k * kPerPass;
+    if (active && r < rows)
+      *reinterpret_cast<float4*>(tile + r * kStride + 4 * tg) = make_float4(
+          (float)q[k].x, (float)q[k].y, (float)q[k].z, (float)q[k].w);
+  }
+}
 
-// One thread per output pixel; blockIdx.z is the batch index.
-__global__ void bilateral7x7_kernel(const int32_t* __restrict__ in,
-                                    int32_t* __restrict__ out, int H, int W,
-                                    double sig_s, float sig_d) {
-  __shared__ float tile[kSpan][kSpan + 1];
-  __shared__ float space[kTaps];
+// kN consecutive floats or ints as one vector load or store
+template <int kN> struct Vec;
+template <> struct Vec<2> { using F = float2; using I = int2; };
+
+// ---------------------------------------------------------------- bilateral
+
+constexpr int kHalf = 3;                       // 7x7 window
+constexpr int kRun = 2;                        // outputs per thread along x
+                                               // (4 measured slower: fewer warps)
+constexpr int kTileW = 32;                     // output columns per block
+constexpr int kTileH = 16;                     // output rows per block
+constexpr int kBx = kTileW / kRun, kBy = kTileH;   // threads per block
+constexpr int kSpanH = kTileH + 2 * kHalf;     // 22 staged rows
+constexpr int kSpanW = kTileW + 8;             // 40 staged columns from x - 4
+constexpr int kSeg = kRun + 8;                 // row values a thread reads
+
+// The 49 taps of one thread's run of kRun outputs. `row0` points at the
+// thread's first staged value (tile row of dy = -3, column of x0 - 4); the
+// neighbour of output j at dx sits at v[j + dx + 4]. kBorder tests each tap
+// against the image by coordinate: bit i of row_ok is window row i, bit k
+// of col_ok is column x0 - 4 + k.
+template <bool kBorder>
+__device__ __forceinline__ void bilateral_taps(
+    const float* __restrict__ row0, const float* __restrict__ space,
+    float sig_d, const float (&c)[kRun], unsigned row_ok, unsigned col_ok,
+    float (&s1)[kRun], float (&s2)[kRun]) {
+  // a runtime loop over dy keeps the code small (kRun x 7 taps per trip);
+  // the spatial weights of the row come from one 16-byte shared load
+#pragma unroll 1
+  for (int i = 0; i < 2 * kHalf + 1; ++i) {
+    if (kBorder && !((row_ok >> i) & 1u)) continue;
+    const float* row = row0 + i * kSpanW;
+    float v[kSeg];
+#pragma unroll
+    for (int q = 0; q < kSeg / kRun; ++q) {
+      const typename Vec<kRun>::F f =
+          *reinterpret_cast<const typename Vec<kRun>::F*>(row + kRun * q);
+#pragma unroll
+      for (int e = 0; e < kRun; ++e)
+        v[kRun * q + e] = reinterpret_cast<const float*>(&f)[e];
+    }
+    const float4 sp4 = *reinterpret_cast<const float4*>(space + 4 * i);
+    const float sp[kHalf + 1] = {sp4.x, sp4.y, sp4.z, sp4.w};   // by |dx|
+    // all exp arguments of the row, then all exps, then the sums in tap
+    // order: the kRun x 7 exps are independent and issue back to back (the
+    // sums alone are a serial chain). Out-of-image taps get a weight that
+    // is never added.
+    float wg[kRun][2 * kHalf + 1];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+#pragma unroll
+      for (int dx = -kHalf; dx <= kHalf; ++dx) {
+        const float diff = c[j] - v[j + dx + kHalf + 1];
+        wg[j][dx + kHalf] = -(sp[dx < 0 ? -dx : dx] + diff * diff * sig_d);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRun; ++j)
+#pragma unroll
+      for (int dx = 0; dx < 2 * kHalf + 1; ++dx) wg[j][dx] = expf(wg[j][dx]);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+#pragma unroll
+      for (int dx = -kHalf; dx <= kHalf; ++dx) {
+        const int k = j + dx + kHalf + 1;
+        if (kBorder && !((col_ok >> k) & 1u)) continue;
+        const float nb = v[k];
+        const float wgt = wg[j][dx + kHalf];
+        s1[j] = s1[j] + nb * wgt;
+        s2[j] = s2[j] + wgt;
+      }
+    }
+  }
+}
+
+// A block computes a kTileH x kTileW output tile; thread (tx, ty) computes
+// row ty, columns kRun tx .. kRun tx + kRun - 1. blockIdx.z is the batch
+// index.
+__global__ void __launch_bounds__(kBx * kBy)
+    bilateral7x7_kernel(const int32_t* __restrict__ in,
+                        int32_t* __restrict__ out, int H, int W,
+                        double sig_s, float sig_d, bool vec) {
+  __shared__ __align__(16) float tile[kSpanH * kSpanW];
+  __shared__ __align__(16) float space[(2 * kHalf + 1) * (kHalf + 1)];
   const size_t plane = (size_t)H * W;
   const int32_t* src = in + blockIdx.z * plane;
   int32_t* dst = out + blockIdx.z * plane;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int bx0 = blockIdx.x * kTileW, by0 = blockIdx.y * kTileH;
 
-  // space2 * sig_s is formed in double and rounded once to float, as the
-  // plain version's Python scalar is when it meets a float32 tensor
-  if (tid < kTaps) {
-    const int dy = tid / (2 * kHalf + 1) - kHalf;
-    const int dx = tid % (2 * kHalf + 1) - kHalf;
-    space[tid] = (float)((double)(dx * dx + dy * dy) * sig_s);
+  // space[i][a] = (dx^2 + dy^2) * sig_s for |dx| = a, dy = i - 3: formed in
+  // double and rounded once to float, as the plain version's Python scalar
+  // is when it meets a float32 tensor
+  const int tid = threadIdx.y * kBx + threadIdx.x;
+  if (tid < (2 * kHalf + 1) * (kHalf + 1)) {
+    const int dy = (tid >> 2) - kHalf, a = tid & 3;
+    space[tid] = (float)((double)(a * a + dy * dy) * sig_s);
   }
-  const int y0 = blockIdx.y * kTile - kHalf;
-  const int x0 = blockIdx.x * kTile - kHalf;
-  for (int i = tid; i < kSpan * kSpan; i += kTile * kTile) {
-    const int ty = i / kSpan, tx = i % kSpan;
-    const int gy = y0 + ty, gx = x0 + tx;
-    tile[ty][tx] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                       ? (float)src[(size_t)gy * W + gx]
-                       : kOutside;
-  }
+  stage<kSpanH, kSpanW / 4, kSpanW, kBx * kBy>(tile, src, H, W, by0 - kHalf,
+                                              bx0 - 4, kSpanH, vec);
   __syncthreads();
 
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y = blockIdx.y * kTile + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const float c = tile[threadIdx.y + kHalf][threadIdx.x + kHalf];
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int dy = -kHalf; dy <= kHalf; ++dy) {
-    for (int dx = -kHalf; dx <= kHalf; ++dx) {
-      const float nb = tile[threadIdx.y + kHalf + dy][threadIdx.x + kHalf + dx];
-      // outside the image: weight 0 (the plain version adds 0 * 0)
-      if (nb == kOutside) continue;
-      const float diff = c - nb;
-      const float wgt =
-          expf(-(space[(dy + kHalf) * (2 * kHalf + 1) + dx + kHalf] +
-                 diff * diff * sig_d));
-      s1 = s1 + nb * wgt;
-      s2 = s2 + wgt;
-    }
+  const int y = by0 + threadIdx.y;
+  const int x0 = bx0 + kRun * threadIdx.x;
+  const float* row0 = tile + threadIdx.y * kSpanW + kRun * threadIdx.x;
+  float c[kRun], s1[kRun], s2[kRun];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    c[j] = row0[kHalf * kSpanW + 4 + j];
+    s1[j] = 0.0f;
+    s2[j] = 0.0f;
   }
-  // the centre tap has weight 1, so s2 >= 1
-  dst[(size_t)y * W + x] = (int32_t)rintf(s1 / s2);
+  const bool interior = blockIdx.x > 0 && bx0 + kTileW + kHalf <= W &&
+                        blockIdx.y > 0 && by0 + kTileH + kHalf <= H;
+  if (interior) {
+    bilateral_taps<false>(row0, space, sig_d, c, 0u, 0u, s1, s2);
+  } else {
+    unsigned row_ok = 0u, col_ok = 0u;
+#pragma unroll
+    for (int i = 0; i < 2 * kHalf + 1; ++i) {
+      const int gy = y - kHalf + i;
+      row_ok |= (unsigned)(gy >= 0 && gy < H) << i;
+    }
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+      const int gx = x0 - 4 + k;
+      col_ok |= (unsigned)(gx >= 0 && gx < W) << k;
+    }
+    bilateral_taps<true>(row0, space, sig_d, c, row_ok, col_ok, s1, s2);
+  }
+  if (y >= H) return;
+  // the centre tap has weight 1, so s2 >= 1 for every output in the image
+  typename Vec<kRun>::I rv;
+  int* r = reinterpret_cast<int*>(&rv);
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) r[j] = (int)rintf(s1[j] / s2[j]);
+  int32_t* o = dst + (size_t)y * W + x0;
+  if (vec && x0 + kRun <= W) {
+    *reinterpret_cast<typename Vec<kRun>::I*>(o) = rv;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j)
+      if (x0 + j < W) o[j] = r[j];
+  }
 }
 
-// One thread per KEPT pixel (2*oy, 2*ox): the mean of the in-image 5x5
-// neighbours within `gate` of the centre, 0 when none pass, truncated.
-__global__ void gated_subsample5x5_kernel(const int32_t* __restrict__ in,
-                                          int32_t* __restrict__ out, int H,
-                                          int W, int OH, int OW, float gate) {
-  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (ox >= OW || oy >= OH) return;
-  const int32_t* src = in + blockIdx.z * (size_t)H * W;
-  int32_t* dst = out + blockIdx.z * (size_t)OH * OW;
-  const int cy = 2 * oy, cx = 2 * ox;
-  const float c = (float)__ldg(src + (size_t)cy * W + cx);
-  // every term is an integer and the sums stay below 2^24: exact in float
+// ------------------------------------------------------------ gated pyramid
+
+constexpr int kGx = 32, kGy = 16;          // threads per block
+constexpr int kL1W = 28, kL1H = 8;         // L1 tile a block owns
+constexpr int kL1Halo = 2;                 // L1 halo the L2 pass reads
+constexpr int kR1W = kL1W + 2 * kL1Halo;   // 32: L1 region with the halo
+constexpr int kR1H = kL1H + 2 * kL1Halo;   // 12
+constexpr int kS0W = 2 * kR1W + 8;         // 72 staged L0 columns (at most)
+constexpr int kS0H = 2 * kR1H + 3;         // 27 staged L0 rows (at most)
+
+// The gated 5x5 mean at the kept pixel whose centre is t[0] in a staged
+// float tile of row stride `stride`: the in-image neighbours (the centre is
+// at (cy, cx) of an h x w image) within `gate` of the centre, 0 when none
+// pass, truncated toward zero. Every term is an integer and the sums stay
+// below 2^24, so they are exact in float.
+__device__ __forceinline__ int gated_mean(const float* __restrict__ t,
+                                          int stride, int cy, int cx, int h,
+                                          int w, float gate) {
+  const float c = t[0];
   float s = 0.0f, cnt = 0.0f;
+#pragma unroll
   for (int dy = -2; dy <= 2; ++dy) {
-    const int y = cy + dy;
-    if (y < 0 || y >= H) continue;
+    if (cy + dy < 0 || cy + dy >= h) continue;
+#pragma unroll
     for (int dx = -2; dx <= 2; ++dx) {
-      const int x = cx + dx;
-      if (x < 0 || x >= W) continue;
-      const float nb = (float)__ldg(src + (size_t)y * W + x);
+      if (cx + dx < 0 || cx + dx >= w) continue;
+      const float nb = t[dy * stride + dx];
       if (fabsf(nb - c) < gate) {
         s = s + nb;
         cnt = cnt + 1.0f;
@@ -119,8 +279,67 @@ __global__ void gated_subsample5x5_kernel(const int32_t* __restrict__ in,
     }
   }
   const float mean = cnt > 0.0f ? s / fmaxf(cnt, 1.0f) : 0.0f;
-  dst[(size_t)oy * OW + ox] = (int32_t)mean;  // truncates toward zero
+  return (int)mean;
 }
+
+// levels == 1: out1 = subsample(in). levels == 2: also out2 =
+// subsample(out1), from the block's L1 region in shared memory. A block
+// owns the L1 tile at (kL1H * by, kL1W * bx) and the L2 tile at half those
+// coordinates; blockIdx.z is the batch index.
+__global__ void __launch_bounds__(kGx * kGy)
+    gated_pyramid5x5_kernel(const int32_t* __restrict__ in,
+                            int32_t* __restrict__ out1,
+                            int32_t* __restrict__ out2, int H, int W,
+                            float gate, int levels, bool vec) {
+  __shared__ __align__(16) float l0[kS0H * kS0W];
+  __shared__ float l1[kR1H * kR1W];
+  const int H1 = H / 2, W1 = W / 2;
+  const int halo = levels == 2 ? kL1Halo : 0;
+  const int rh = kL1H + 2 * halo, rw = kL1W + 2 * halo;   // L1 region
+  const int r0y = blockIdx.y * kL1H - halo, r0x = blockIdx.x * kL1W - halo;
+  const int32_t* src = in + blockIdx.z * (size_t)H * W;
+
+  // L0 rows 2*r0y - 2 .. 2*(r0y + rh - 1) + 2; columns from 2*r0x - 4, a
+  // multiple of 4, through at least 2*(r0x + rw - 1) + 2
+  stage<kS0H, kS0W / 4, kS0W, kGx * kGy>(l0, src, H, W, 2 * r0y - 2,
+                                         2 * r0x - 4, 2 * rh + 3, vec);
+  __syncthreads();
+
+  int32_t* dst1 = out1 + blockIdx.z * (size_t)H1 * W1;
+  for (int r = threadIdx.y; r < rh; r += kGy) {
+    const int py = r0y + r;
+    for (int c = threadIdx.x; c < rw; c += kGx) {
+      const int px = r0x + c;
+      int v = 0;
+      if (py >= 0 && py < H1 && px >= 0 && px < W1) {
+        // L0 pixel (2py, 2px) is staged at (2r + 2, 2c + 4)
+        v = gated_mean(l0 + (2 * r + 2) * kS0W + 2 * c + 4, kS0W, 2 * py,
+                       2 * px, H, W, gate);
+        if (r >= halo && r < halo + kL1H && c >= halo && c < halo + kL1W)
+          dst1[(size_t)py * W1 + px] = v;
+      }
+      l1[r * kR1W + c] = (float)v;
+    }
+  }
+  if (levels == 1) return;
+  __syncthreads();
+
+  const int H2 = H1 / 2, W2 = W1 / 2;
+  int32_t* dst2 = out2 + blockIdx.z * (size_t)H2 * W2;
+  for (int r = threadIdx.y; r < kL1H / 2; r += kGy) {
+    const int qy = blockIdx.y * (kL1H / 2) + r;
+    for (int c = threadIdx.x; c < kL1W / 2; c += kGx) {
+      const int qx = blockIdx.x * (kL1W / 2) + c;
+      if (qy >= H2 || qx >= W2) continue;
+      // L1 pixel (2qy, 2qx) is at (2r + halo, 2c + halo) of the region
+      dst2[(size_t)qy * W2 + qx] =
+          gated_mean(l1 + (2 * r + halo) * kR1W + 2 * c + halo, kR1W, 2 * qy,
+                     2 * qx, H1, W1, gate);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -130,22 +349,28 @@ extern "C" {
 int oslam_bilateral7x7(const void* in, void* out, int B, int H, int W,
                        double sig_s, float sig_d, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  const dim3 block(kTile, kTile);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
+  const bool vec = W % 4 == 0 && aligned16(in) && aligned16(out);
+  const dim3 block(kBx, kBy);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   bilateral7x7_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)in, (int32_t*)out, H, W, sig_s, sig_d);
+      (const int32_t*)in, (int32_t*)out, H, W, sig_s, sig_d, vec);
   return (int)cudaGetLastError();
 }
 
-// in: int32[B, H, W]; out: int32[B, H / 2, W / 2]; both contiguous.
-int oslam_gated_subsample5x5(const void* in, void* out, int B, int H, int W,
-                             float gate, void* stream) {
-  const int OH = H / 2, OW = W / 2;
-  if (B <= 0 || OH <= 0 || OW <= 0) return (int)cudaSuccess;
-  const dim3 block(32, 8);
-  const dim3 grid((OW + 31) / 32, (OH + 7) / 8, B);
-  gated_subsample5x5_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)in, (int32_t*)out, H, W, OH, OW, gate);
+// in: int32[B, H, W]; out1: int32[B, H/2, W/2]; with levels == 2 also
+// out2: int32[B, H/4', W/4'] where H/4' = (H/2)/2; all contiguous.
+int oslam_gated_pyramid5x5(const void* in, void* out1, void* out2, int B,
+                           int H, int W, float gate, int levels,
+                           void* stream) {
+  if (levels != 1 && levels != 2) return (int)cudaErrorInvalidValue;
+  const int H1 = H / 2, W1 = W / 2;
+  if (B <= 0 || H1 <= 0 || W1 <= 0) return (int)cudaSuccess;
+  const bool vec = W % 4 == 0 && aligned16(in);
+  const dim3 block(kGx, kGy);
+  const dim3 grid((W1 + kL1W - 1) / kL1W, (H1 + kL1H - 1) / kL1H, B);
+  gated_pyramid5x5_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)in, (int32_t*)out1, (int32_t*)out2, H, W, gate, levels,
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -64,7 +64,7 @@ def prealloc_levels(capacity: int) -> int:
     return 1
 
 
-def create(capacity: int, center, half_size, device="cpu") -> SVONodePool:
+def create(capacity: int, center, half_size, device="cuda") -> SVONodePool:
     """Fresh pool with the shallow levels dense: the node of cell m at
     level l sits at (8^l - 8)/7 + m with child tile base(l+1) + 8m. Values
     start at the fresh-node word (rgb=0, alpha=127, svo.cu:274)."""

@@ -2,8 +2,8 @@
 octree_slam_tpu/pipeline.py).
 
 `step` runs one frame as plain eager PyTorch on whatever device the state
-lives on: the depth pyramid (bilateral kernel + two gated-subsample
-kernels), 19 Gauss-Newton ICP iterations against the previous frame, the
+lives on: the depth pyramid (one bilateral launch + one gated-pyramid
+launch for both subsampled levels), 19 Gauss-Newton ICP iterations against the previous frame, the
 lazy SVO insert with its unique-cap remainder pages, the leaf-registry
 append, and the splat render. Map state is updated in place where the JAX
 step donates its buffers, so the state passed in must not be reused.
@@ -32,7 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from octree_slam_tpu.config import SLAMConfig
+from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame, PyramidLevel
 from octree_slam_tpu_torch.map import svo
 from octree_slam_tpu_torch.map.svo import SVONodePool
@@ -117,7 +117,7 @@ def _empty_pyramid(cfg: SLAMConfig, device) -> Tuple[PyramidLevel, ...]:
 
 def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
                initial_pose: torch.Tensor | None = None,
-               device="cpu") -> SLAMState:
+               device="cuda") -> SLAMState:
     """Empty map and identity (or `initial_pose`) camera on `device`. The
     root cell spans voxel_resolution * 2^(max_depth-1) around map_center,
     so leaves are exactly voxel_resolution."""

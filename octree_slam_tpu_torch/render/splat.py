@@ -43,7 +43,7 @@ class LeafList(NamedTuple):
 
 
 def create_leaf_list(capacity: int, node_capacity: int,
-                     device="cpu") -> LeafList:
+                     device="cuda") -> LeafList:
     i32 = dict(dtype=torch.int32, device=device)
     return LeafList(
         keys=torch.full((capacity,), -1, **i32),

@@ -11,7 +11,7 @@ are full and clipped to the image (image_kernels.cu:155-156, 252-253).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -81,6 +81,19 @@ def subsample_depth(depth_mm: torch.Tensor,
     image_kernels.cu:237-269): mean of the 5x5 window around (2y, 2x)
     gated to +-3 sigma of the centre sample; [.., H//2, W//2]."""
     return cuda_ops.gated_subsample(depth_mm, 3.0 * sigma_depth)
+
+
+def subsample_depth_levels(depth_mm: torch.Tensor, levels: int,
+                           sigma_depth: float = 40.0) -> List[torch.Tensor]:
+    """`levels` successive subsample_depth results, coarser each time, made
+    up to cuda_ops.MAX_PYRAMID_LEVELS at a time by one gated_pyramid
+    launch."""
+    out: List[torch.Tensor] = []
+    while len(out) < levels:
+        out += cuda_ops.gated_pyramid(
+            out[-1] if out else depth_mm, 3.0 * sigma_depth,
+            min(levels - len(out), cuda_ops.MAX_PYRAMID_LEVELS))
+    return out
 
 
 def subsample(img: torch.Tensor) -> torch.Tensor:

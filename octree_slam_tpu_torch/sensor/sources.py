@@ -35,7 +35,7 @@ class SyntheticScene(NamedTuple):
     plane_albedo: torch.Tensor   # f32[np, 3]
 
 
-def default_scene(device="cpu") -> SyntheticScene:
+def default_scene(device="cuda") -> SyntheticScene:
     """A small 'desk': floor + back wall + three coloured spheres + box."""
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
@@ -143,7 +143,7 @@ def render_frame(scene: SyntheticScene, world_T_cam: torch.Tensor, fx, fy, *,
 
 
 def orbit_pose(angle, radius: float = 2.0, height: float = 0.3,
-               target=(0.0, 0.0, 0.0), device="cpu") -> torch.Tensor:
+               target=(0.0, 0.0, 0.0), device="cuda") -> torch.Tensor:
     """world_T_cam of a camera orbiting `target` and looking at it
     (x right, y up, z forward)."""
     angle = torch.as_tensor(angle, dtype=torch.float32).to(device)
@@ -165,7 +165,7 @@ class ReplaySource:
     colour), moved to `device` one frame at a time."""
 
     def __init__(self, depths: np.ndarray, colors: np.ndarray,
-                 timestamps: np.ndarray | None = None, device="cpu"):
+                 timestamps: np.ndarray | None = None, device="cuda"):
         if depths.shape[0] != colors.shape[0]:
             raise ValueError("depths and colors differ in frame count")
         self.depths = depths

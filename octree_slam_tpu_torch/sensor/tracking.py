@@ -24,7 +24,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from octree_slam_tpu.config import SLAMConfig
+from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core import se3
 from octree_slam_tpu_torch.core.types import PyramidLevel
 from octree_slam_tpu_torch.sensor import image_ops
@@ -47,10 +47,12 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
         sigma_spatial=cfg.bilateral_sigma_spatial,
         sigma_depth=cfg.bilateral_sigma_depth)
     intensity = image_ops.color_to_intensity(color, cfg.intensity_ratio)
+    depths = [filtered] + image_ops.subsample_depth_levels(
+        filtered, cfg.pyramid_depth - 1, cfg.bilateral_sigma_depth)
     levels = []
-    d, inten = filtered, intensity
+    inten = intensity
     min_map_level = min(cfg.track_finest_level, cfg.fuse_level)
-    for i in range(cfg.pyramid_depth):
+    for i, d in enumerate(depths):
         if i >= min_map_level:
             vertex = image_ops.generate_vertex_map(
                 d, cfg.focal_x, cfg.focal_y, (cfg.width, cfg.height))
@@ -61,7 +63,6 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
         levels.append(PyramidLevel(vertex=vertex, normal=normal,
                                    intensity=inten))
         if i != cfg.pyramid_depth - 1:
-            d = image_ops.subsample_depth(d, cfg.bilateral_sigma_depth)
             inten = image_ops.subsample(inten)
     return levels
 

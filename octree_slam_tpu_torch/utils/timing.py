@@ -20,6 +20,10 @@ from typing import Callable, Dict, List
 
 import torch
 
+# a torch.profiler trace now and then comes back with no device activity at
+# all, even after the traced kernels ran and were checked; retry that many
+_TRACE_ATTEMPTS = 3
+
 
 class EventTimer:
     """Per-name lists of CUDA event pairs; read after a synchronize."""
@@ -60,24 +64,28 @@ def device_ms(fn: Callable[[], object], runs: int = 50,
     """Mean device milliseconds per call of `fn`: the summed durations of
     every kernel, copy and fill it ran on the card, as torch.profiler
     traces them, over `runs` calls after `warmup` untimed ones. Host launch
-    time and gaps between kernels are not in it."""
+    time and gaps between kernels are not in it. A trace with no device
+    activity is taken again, up to `_TRACE_ATTEMPTS` times in all, and
+    then this raises."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # a record_function range shows up on both sides; count only what ran
-    # on the device alone (kernels, copies, fills)
-    host_keys = {e.key for e in events if e.device_type !=
-                 torch.autograd.DeviceType.CUDA}
-    total_us = sum(e.self_device_time_total for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key not in host_keys)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3 / runs
+    for _ in range(_TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # a record_function range shows up on both sides; count only what
+        # ran on the device alone (kernels, copies, fills)
+        host_keys = {e.key for e in events if e.device_type !=
+                     torch.autograd.DeviceType.CUDA}
+        total_us = sum(e.self_device_time_total for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.key not in host_keys)
+        if total_us > 0:
+            return total_us / 1e3 / runs
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{_TRACE_ATTEMPTS} traces")

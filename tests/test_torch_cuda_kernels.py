@@ -17,6 +17,12 @@ from octree_slam_tpu_torch.sensor import cuda_ops
 
 pytestmark = pytest.mark.cuda
 
+# 480x640 is the main path's; (2, 1080, 1920) gives a grid of 8,160 blocks
+BILATERAL_SHAPES = [(480, 640), (479, 641), (483, 645), (4, 240, 320),
+                    (2, 1080, 1920), (9, 11), (1, 1)]
+# (483, 645) has an odd L1 (241 x 322 -> 120 x 161)
+PYRAMID_SHAPES = [(480, 640), (479, 641), (483, 645), (4, 240, 320), (9, 11),
+                  (5, 5), (1, 1)]
 SHAPES = [(480, 640), (479, 641), (4, 240, 320), (9, 11), (1, 1)]
 
 
@@ -34,7 +40,7 @@ def _depth(shape, seed, device):
         device)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BILATERAL_SHAPES)
 def test_bilateral_kernel_matches_plain(device, shape):
     d = _depth(shape, 1, device)
     before = cuda_ops.LAUNCHES["bilateral7x7"]
@@ -49,13 +55,41 @@ def test_bilateral_kernel_matches_plain(device, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_gated_subsample_kernel_matches_plain(device, shape):
     d = _depth(shape, 2, device)
-    before = cuda_ops.LAUNCHES["gated_subsample5x5"]
+    before = cuda_ops.LAUNCHES["gated_pyramid5x5"]
     out = cuda_ops.gated_subsample(d, 120.0)
-    assert cuda_ops.LAUNCHES["gated_subsample5x5"] == before + 1
+    assert cuda_ops.LAUNCHES["gated_pyramid5x5"] == before + 1
     ref = cuda_ops.gated_subsample_plain(d, 120.0)
     torch.cuda.synchronize()
     assert out.shape == ref.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("shape", PYRAMID_SHAPES)
+def test_gated_pyramid_kernel_matches_plain(device, shape, levels):
+    d = _depth(shape, 3, device)
+    before = cuda_ops.LAUNCHES["gated_pyramid5x5"]
+    out = cuda_ops.gated_pyramid(d, 120.0, levels)
+    assert cuda_ops.LAUNCHES["gated_pyramid5x5"] == before + 1
+    ref = cuda_ops.gated_pyramid_plain(d, 120.0, levels)
+    torch.cuda.synchronize()
+    assert len(out) == len(ref) == levels
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and o.dtype == torch.int32
+        assert torch.equal(o, r)
+
+
+def test_kernels_take_an_unaligned_view(device):
+    """A contiguous view 4 bytes into its storage: the kernels read it
+    without 16-byte loads."""
+    flat = _depth((1, 1 + 480 * 640), 4, device).flatten()
+    d = flat[1:].view(480, 640)
+    assert d.data_ptr() % 16 != 0
+    assert torch.equal(cuda_ops.bilateral(d, 4.5, 40.0),
+                       cuda_ops.bilateral_plain(d, 4.5, 40.0))
+    for o, r in zip(cuda_ops.gated_pyramid(d, 120.0, 2),
+                    cuda_ops.gated_pyramid_plain(d, 120.0, 2)):
+        assert torch.equal(o, r)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
@@ -66,3 +100,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         cuda_ops.gated_subsample(d.t(), 120.0)
     with pytest.raises(ValueError):
         cuda_ops.bilateral(d[None, None], 4.5, 40.0)
+    with pytest.raises(ValueError):
+        cuda_ops.gated_pyramid(d, 120.0, 3)

@@ -5,8 +5,9 @@ at a Pallas-compatible shape, against the Pallas kernels in interpret mode.
 
 Tolerances: the bilateral filter is equal or +-1 mm on at most 0.1% of
 pixels (exp of two math libraries can straddle a rounding tie); the gated
-subsample is bit-exact (integer sums below 2^24 are exact in float32);
-vertex and normal maps agree within 1e-6 with identical INF masks."""
+subsample and the two-level gated pyramid are bit-exact (integer sums below
+2^24 are exact in float32); vertex and normal maps agree within 1e-6 with
+identical INF masks."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,6 +20,8 @@ from octree_slam_tpu.sensor import image_ops as jimg, pallas_ops
 from octree_slam_tpu_torch.sensor import cuda_ops, image_ops
 
 SHAPES = [(48, 64), (60, 80), (9, 11)]
+# (H, W) with odd H/2 or W/2, and a batch of 2
+PYRAMID_SHAPES = [(64, 48), (65, 49), (67, 51), (2, 64, 48)]
 
 
 def _step_depth():
@@ -69,8 +72,9 @@ class TestBilateralPlain:
         d = to_t(rand_depth(9, 11, seed=0))
         cuda_ops.bilateral(d, 4.5, 40.0)
         cuda_ops.gated_subsample(d, 120.0)
+        cuda_ops.gated_pyramid(d, 120.0, 2)
         assert cuda_ops.LAUNCHES == {"bilateral7x7": 0,
-                                     "gated_subsample5x5": 0}
+                                     "gated_pyramid5x5": 0}
 
     def test_only_7x7_is_ported(self):
         with pytest.raises(NotImplementedError):
@@ -107,6 +111,58 @@ class TestGatedSubsamplePlain:
         assert out.shape == (2, 10, 13)
         for i in range(2):
             assert torch.equal(out[i], cuda_ops.gated_subsample(d[i], 120.0))
+
+
+def _pyramid_depth(shape, seed):
+    batch = shape[0] if len(shape) == 3 else None
+    return rand_depth(*shape[-2:], seed=seed, batch=batch)
+
+
+def _images(d):
+    return list(d) if d.ndim == 3 else [d]
+
+
+class TestGatedPyramidPlain:
+    @pytest.mark.parametrize("shape", PYRAMID_SHAPES)
+    def test_matches_two_jax_subsamples(self, shape):
+        d = _pyramid_depth(shape, seed=sum(shape))
+        out = cuda_ops.gated_pyramid(to_t(d), 120.0, 2)
+        assert len(out) == 2
+        for i, ref in enumerate(_images(d)):
+            for level in range(2):
+                ref = np.asarray(jimg.subsample_depth(jnp.asarray(ref), 40.0))
+                got = _images(out[level].numpy())[i]
+                assert got.shape == ref.shape
+                np.testing.assert_array_equal(got, ref)
+
+    @pytest.mark.parametrize("shape", PYRAMID_SHAPES)
+    def test_matches_pallas_interpret(self, shape):
+        d = _pyramid_depth(shape, seed=7 + sum(shape))
+        out = cuda_ops.gated_pyramid_plain(to_t(d), 120.0, 2)
+        for i, ref in enumerate(_images(d)):
+            for level in range(2):
+                h, w = ref.shape
+                full = np.asarray(pallas_ops.gated_window_mean(
+                    jnp.asarray(ref), 120.0, interpret=True))
+                ref = full[::2, ::2][:h // 2, :w // 2].astype(np.uint16)
+                np.testing.assert_array_equal(
+                    _images(out[level].numpy())[i], ref)
+
+    def test_levels_chain_two_at_a_time(self):
+        d = rand_depth(67, 51, seed=9)
+        out = image_ops.subsample_depth_levels(to_t(d), 3, 40.0)
+        ref = d
+        for level in range(3):
+            ref = np.asarray(jimg.subsample_depth(jnp.asarray(ref), 40.0))
+            np.testing.assert_array_equal(out[level].numpy(), ref)
+        assert image_ops.subsample_depth_levels(to_t(d), 0) == []
+
+    def test_one_level_is_the_subsample(self):
+        d = to_t(rand_depth(21, 26, seed=6))
+        (one,) = cuda_ops.gated_pyramid(d, 120.0, 1)
+        assert torch.equal(one, cuda_ops.gated_subsample(d, 120.0))
+        with pytest.raises(ValueError):
+            cuda_ops.gated_pyramid(d, 120.0, 3)
 
 
 class TestMaps:

@@ -1,6 +1,7 @@
 """Port parity for the whole slice: pipeline.step(render="splat") against
 the JAX package from one carried-over state, the port's own ATE, the
-synthetic sources, state conversion, and that the port runs without jax.
+synthetic sources, state conversion, that the port runs without jax and
+without the JAX package, and that its entry points default to the card.
 
 Tolerances (world points go through a 3x3 product that rounds differently
 in the two libraries, so keys at cell boundaries may flip): poses within
@@ -19,19 +20,22 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import orbit_frames, to_t
+from torch_parity import DEVICE, orbit_frames, port_config, to_t
 
 from octree_slam_tpu import pipeline as jpipeline
 from octree_slam_tpu.config import SLAMConfig
 from octree_slam_tpu.sensor import sources as jsources
-from octree_slam_tpu.utils.metrics import ate_rmse
 from octree_slam_tpu_torch import convert, pipeline
+from octree_slam_tpu_torch.map import svo
+from octree_slam_tpu_torch.render import splat
 from octree_slam_tpu_torch.sensor import sources
+from octree_slam_tpu_torch.utils.metrics import ate_rmse
 
 CFG = SLAMConfig(width=64, height=48, focal_x=55.0, focal_y=55.0,
                  pyramid_depth=2, pyramid_iters=(6, 6),
                  voxel_resolution=0.05, max_depth=6, node_capacity=1 << 14,
                  leaf_capacity=1 << 12, insert_unique_cap=1 << 10)
+TCFG = port_config(CFG)
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -51,13 +55,14 @@ def test_step_parity_from_carried_state(stream):
         jstate, _ = jpipeline.step(jstate, jsources.Frame(
             jnp.asarray(depth[i]), jnp.asarray(color[i]), jnp.float32(0)),
             CFG)
-    tstate = convert.state_from_numpy(_np_state(jstate), CFG)
+    tstate = convert.state_from_numpy(_np_state(jstate), TCFG, device=DEVICE)
     for i in range(2, 4):
         jstate, jo = jpipeline.step(jstate, jsources.Frame(
             jnp.asarray(depth[i]), jnp.asarray(color[i]), jnp.float32(0)),
             CFG)
         tstate, to = pipeline.step(
-            tstate, convert.frame_from_numpy(depth[i], color[i]), CFG)
+            tstate, convert.frame_from_numpy(depth[i], color[i],
+                                             device=DEVICE), TCFG)
         np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
                                    atol=1e-4)
         for name in ("map_nodes", "map_leaves"):
@@ -80,19 +85,21 @@ def test_step_parity_from_carried_state(stream):
 
 def test_port_orbit_ate(stream):
     depth, color, gt = stream
-    state = pipeline.init_state(CFG, initial_pose=to_t(gt[0]))
+    state = pipeline.init_state(TCFG, initial_pose=to_t(gt[0]),
+                                device=DEVICE)
     est = []
     for i in range(4):
         state, out = pipeline.step(
-            state, convert.frame_from_numpy(depth[i], color[i]), CFG)
+            state, convert.frame_from_numpy(depth[i], color[i],
+                                            device=DEVICE), TCFG)
         est.append(out.pose.numpy())
         assert not bool(out.diverged) and not bool(out.map_overflowed)
     assert ate_rmse(np.stack(est), gt) < 0.01
     assert (out.framebuffer[..., 3] > 0).sum() > 100
     # render="none" runs the same track + fuse with an empty framebuffer
     state, out = pipeline.step(
-        state, convert.frame_from_numpy(depth[3], color[3]), CFG,
-        render="none")
+        state, convert.frame_from_numpy(depth[3], color[3], device=DEVICE),
+        TCFG, render="none")
     assert float(out.framebuffer.abs().max()) == 0.0
 
 
@@ -100,11 +107,13 @@ def test_unique_cap_pages_in_step(stream):
     depth, color, gt = stream
     cfg = dataclasses.replace(CFG, insert_unique_cap=1 << 7)
     jstate = jpipeline.init_state(cfg, initial_pose=jnp.asarray(gt[0]))
-    tstate = pipeline.init_state(cfg, initial_pose=to_t(gt[0]))
+    tstate = pipeline.init_state(port_config(cfg), initial_pose=to_t(gt[0]),
+                                 device=DEVICE)
     jstate, jo = jpipeline.step(jstate, jsources.Frame(
         jnp.asarray(depth[0]), jnp.asarray(color[0]), jnp.float32(0)), cfg)
     tstate, to = pipeline.step(
-        tstate, convert.frame_from_numpy(depth[0], color[0]), cfg)
+        tstate, convert.frame_from_numpy(depth[0], color[0], device=DEVICE),
+        port_config(cfg))
     # first frame: identical pose, so the paged map is bit-identical
     assert int(to.map_leaves) == int(jo.map_leaves) > (1 << 7)
     assert int(to.last_insert_key) == int(jo.last_insert_key)
@@ -124,7 +133,7 @@ def test_unique_cap_pages_in_step(stream):
     ({}, "cone_hybrid"),
 ])
 def test_unported_branches_raise(change, render):
-    cfg = dataclasses.replace(CFG, **change)
+    cfg = dataclasses.replace(TCFG, **change)
     with pytest.raises(NotImplementedError):
         pipeline.check_supported(cfg, render)
     if change:
@@ -134,18 +143,18 @@ def test_unported_branches_raise(change, render):
 
 def test_sources_match_reference():
     pose_j = jsources.orbit_pose(0.25, radius=2.0)
-    pose_t = sources.orbit_pose(0.25, radius=2.0)
+    pose_t = sources.orbit_pose(0.25, radius=2.0, device=DEVICE)
     np.testing.assert_allclose(pose_t.numpy(), np.asarray(pose_j), atol=1e-6)
     jf = jsources.render_frame(jsources.default_scene(), pose_j, 55.0, 55.0,
                                width=64, height=48)
-    tf = sources.render_frame(sources.default_scene(), pose_t, 55.0, 55.0,
-                              width=64, height=48)
+    tf = sources.render_frame(sources.default_scene(DEVICE), pose_t, 55.0,
+                              55.0, width=64, height=48)
     dd = np.abs(tf.depth.numpy() - np.asarray(jf.depth).astype(np.int64))
     assert dd.max() <= 1 and (dd > 0).mean() <= 0.01
     dc = np.abs(tf.color.numpy().astype(int) - np.asarray(jf.color))
     assert dc.max() <= 1
     rs = sources.ReplaySource(np.asarray(jf.depth)[None],
-                              np.asarray(jf.color)[None])
+                              np.asarray(jf.color)[None], device=DEVICE)
     f0 = rs.frame(0)
     assert len(rs) == 1 and f0.depth.dtype == torch.int32
     np.testing.assert_array_equal(f0.depth.numpy(), np.asarray(jf.depth))
@@ -153,9 +162,11 @@ def test_sources_match_reference():
 
 def test_port_imports_and_steps_without_jax():
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['octree_slam_tpu'] = None\n"
         "import torch\n"
-        "from octree_slam_tpu.config import SLAMConfig\n"
+        "from octree_slam_tpu_torch import SLAMConfig\n"
         "from octree_slam_tpu_torch import pipeline, convert, _build\n"
         "from octree_slam_tpu_torch.sensor import sources\n"
         "from octree_slam_tpu_torch.utils import metrics, timing\n"
@@ -163,14 +174,15 @@ def test_port_imports_and_steps_without_jax():
         " pyramid_depth=2, pyramid_iters=(2, 2), voxel_resolution=0.1,"
         " max_depth=5, node_capacity=1 << 12, leaf_capacity=1 << 10,"
         " insert_unique_cap=1 << 9)\n"
-        "pose = sources.orbit_pose(0.0)\n"
-        "f = sources.render_frame(sources.default_scene(), pose,"
+        "pose = sources.orbit_pose(0.0, device='cpu')\n"
+        "f = sources.render_frame(sources.default_scene('cpu'), pose,"
         " cfg.focal_x, cfg.focal_y, width=32, height=24)\n"
-        "s = pipeline.init_state(cfg, initial_pose=pose)\n"
+        "s = pipeline.init_state(cfg, initial_pose=pose, device='cpu')\n"
         "s, out = pipeline.step(s, f, cfg)\n"
         "assert int(out.map_leaves) > 0\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')"
-        " for m, v in sys.modules.items() if v is not None)\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
+        "assert not [m for m in loaded if m.split('.')[0] in"
+        " ('jax', 'octree_slam_tpu')], loaded\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -185,7 +197,8 @@ def test_convert_round_trip(stream):
     jstate, _ = jpipeline.step(jstate, jsources.Frame(
         jnp.asarray(depth[0]), jnp.asarray(color[0]), jnp.float32(0)), CFG)
     ref = _np_state(jstate)
-    back = convert.state_to_numpy(convert.state_from_numpy(ref, CFG))
+    back = convert.state_to_numpy(
+        convert.state_from_numpy(ref, TCFG, device=DEVICE))
     for group in ("pool", "leaves"):
         for name, arr in back[group].items():
             want = np.asarray(getattr(getattr(ref, group), name))
@@ -196,4 +209,29 @@ def test_convert_round_trip(stream):
         np.testing.assert_array_equal(lvl["vertex"], want.vertex)
     with pytest.raises(ValueError):
         convert.state_from_numpy(
-            ref, dataclasses.replace(CFG, node_capacity=1 << 15))
+            ref, dataclasses.replace(TCFG, node_capacity=1 << 15),
+            device=DEVICE)
+
+
+def test_entry_points_default_to_the_card():
+    """Called with no device, the entry points make their tensors on the
+    card; on a machine without one they raise instead of running on the
+    CPU."""
+    calls = [lambda: pipeline.init_state(TCFG),
+             lambda: svo.create(64, (0.0, 0.0, 0.0), 1.0),
+             lambda: splat.create_leaf_list(8, 64),
+             lambda: sources.default_scene(),
+             lambda: sources.orbit_pose(0.0),
+             lambda: convert.frame_from_numpy(
+                 np.zeros((4, 6), np.uint16), np.zeros((4, 6, 3), np.uint8)),
+             lambda: sources.ReplaySource(
+                 np.zeros((1, 4, 6), np.uint16),
+                 np.zeros((1, 4, 6, 3), np.uint8)).frame(0)]
+    if torch.cuda.is_available():
+        assert pipeline.init_state(TCFG).pose.device.type == "cuda"
+        for call in calls[1:]:
+            call()
+        return
+    for call in calls:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_parity import random_cloud, to_t, words
+from torch_parity import DEVICE, random_cloud, to_t, words
 
 from octree_slam_tpu.map import svo as jsvo
 from octree_slam_tpu.render import splat as jsplat
@@ -29,9 +29,9 @@ W, H, FX = 64, 48, 55.0
 def _stream(n_frames=3):
     """Both packages' pool + registry after the same insert stream."""
     jpool = jsvo.create(CAP, jnp.zeros(3), 1.0)
-    tpool = svo.create(CAP, torch.zeros(3), 1.0)
+    tpool = svo.create(CAP, torch.zeros(3), 1.0, device=DEVICE)
     jl = jsplat.create_leaf_list(LC, CAP)
-    tl = splat.create_leaf_list(LC, CAP)
+    tl = splat.create_leaf_list(LC, CAP, device=DEVICE)
     pts0, cols = random_cloud(3000, seed=21, lo=-0.6, hi=0.6)
     for fr in range(n_frames):
         pts = pts0 + np.float32(0.03 * fr)
@@ -65,13 +65,13 @@ def test_registry_bit_identical():
 
 def test_registry_overflow_flag():
     jl = jsplat.create_leaf_list(64, CAP)
-    tl = splat.create_leaf_list(64, CAP)
+    tl = splat.create_leaf_list(64, CAP, device=DEVICE)
     pts, cols = random_cloud(500, seed=2)
     _, jst = jsvo.insert(jsvo.create(CAP, jnp.zeros(3), 1.0),
                          jnp.asarray(pts), jnp.asarray(cols), depth=DEPTH,
                          unique_cap=U, update_interior=False)
-    _, tst = svo.insert(svo.create(CAP, torch.zeros(3), 1.0), to_t(pts),
-                        to_t(cols), depth=DEPTH, unique_cap=U)
+    _, tst = svo.insert(svo.create(CAP, torch.zeros(3), 1.0, device=DEVICE),
+                        to_t(pts), to_t(cols), depth=DEPTH, unique_cap=U)
     jl = jsplat.append_new_leaves(jl, jst)
     tl = splat.append_new_leaves(tl, tst)
     assert bool(tl.overflowed) and bool(jl.overflowed)

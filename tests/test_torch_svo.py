@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from oracle import OracleOctree, morton_key
-from torch_parity import random_cloud, to_t, words, xla_blend
+from torch_parity import DEVICE, random_cloud, to_t, words, xla_blend
 
 from octree_slam_tpu.map import svo as jsvo
 from octree_slam_tpu_torch.core import packing
@@ -62,7 +62,7 @@ def test_insert_stream_bit_identical(unique_cap):
     small cap pages every frame through min_key, the large one never."""
     depth, cap = 6, 1 << 14
     jpool = jsvo.create(cap, jnp.zeros(3), 1.0)
-    tpool = svo.create(cap, torch.zeros(3), 1.0)
+    tpool = svo.create(cap, torch.zeros(3), 1.0, device=DEVICE)
     pts0, cols = random_cloud(6000, seed=11, lo=-0.7, hi=0.7)
     paged = 0
     for fr in range(5):
@@ -111,8 +111,9 @@ def test_pad_case_cap_above_point_count():
                              jnp.asarray(pts), jnp.asarray(cols),
                              depth=depth, unique_cap=1024,
                              update_interior=False)
-    tpool, tst = svo.insert(svo.create(cap, torch.zeros(3), 1.0), to_t(pts),
-                            to_t(cols), depth=depth, unique_cap=1024)
+    tpool, tst = svo.insert(
+        svo.create(cap, torch.zeros(3), 1.0, device=DEVICE), to_t(pts),
+        to_t(cols), depth=depth, unique_cap=1024)
     np.testing.assert_array_equal(tpool.child.numpy(), np.asarray(jpool.child))
     np.testing.assert_array_equal(words(tpool.value), np.asarray(jpool.value))
     np.testing.assert_array_equal(tst.touched_leaf_keys.numpy(),
@@ -128,8 +129,9 @@ def test_node_capacity_overflow_matches():
                              jnp.asarray(pts), jnp.asarray(cols),
                              depth=depth, update_interior=False,
                              unique_cap=1024)
-    tpool, tst = svo.insert(svo.create(64, torch.zeros(3), 1.0), to_t(pts),
-                            to_t(cols), depth=depth, unique_cap=1024)
+    tpool, tst = svo.insert(
+        svo.create(64, torch.zeros(3), 1.0, device=DEVICE), to_t(pts),
+        to_t(cols), depth=depth, unique_cap=1024)
     assert bool(tst.overflowed) and bool(jst.overflowed)
     np.testing.assert_array_equal(tpool.child.numpy(), np.asarray(jpool.child))
     np.testing.assert_array_equal(words(tpool.value), np.asarray(jpool.value))
@@ -141,7 +143,7 @@ def test_leaves_match_oracle():
     alpha exact, colour within the oracle's own float64 rounding."""
     depth = 5
     pts, cols = random_cloud(400, seed=7)
-    pool = svo.create(1 << 13, torch.zeros(3), 1.0)
+    pool = svo.create(1 << 13, torch.zeros(3), 1.0, device=DEVICE)
     oracle = OracleOctree(np.zeros(3), 1.0, depth)
     for half in (slice(0, 250), slice(150, 400)):
         pool, st = svo.insert(pool, to_t(pts[half]), to_t(cols[half]),

@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
-from torch_parity import orbit_frames, to_t
+from torch_parity import orbit_frames, port_config, to_t
 
 from octree_slam_tpu.config import SLAMConfig
 from octree_slam_tpu.core import se3 as jse3
@@ -21,6 +21,7 @@ from octree_slam_tpu_torch.sensor import tracking
 # tests/test_tracking.py's small config with the production 3-level
 # {10, 5, 4} schedule: 19 Gauss-Newton iterations
 CFG = SLAMConfig(width=80, height=60, focal_x=70.0, focal_y=70.0)
+TCFG = port_config(CFG)
 
 
 def _to_port(pyr):
@@ -44,7 +45,7 @@ class TestPyramid:
         depth, color, _ = orbit_frames(CFG, 1)
         jp = jtracking.build_pyramid(jnp.asarray(depth[0]),
                                      jnp.asarray(color[0]), CFG)
-        tp = tracking.build_pyramid(to_t(depth[0]), to_t(color[0]), CFG)
+        tp = tracking.build_pyramid(to_t(depth[0]), to_t(color[0]), TCFG)
         assert len(tp) == len(jp) == CFG.pyramid_depth
         for jl, tl in zip(jp, tp):
             for name in ("vertex", "normal", "intensity"):
@@ -60,7 +61,7 @@ class TestTrack:
     def test_track_pose_matches(self):
         pa, pb = _pyramids(CFG, 0.0, 0.02)
         jT, jst = jtracking.track(pa, pb, CFG)
-        tT, tst = tracking.track(_to_port(pa), _to_port(pb), CFG)
+        tT, tst = tracking.track(_to_port(pa), _to_port(pb), TCFG)
         np.testing.assert_allclose(tT.numpy(), np.asarray(jT), atol=1e-5)
         np.testing.assert_array_equal(tst.inliers.numpy(),
                                       np.asarray(jst.inliers))
@@ -80,7 +81,7 @@ class TestTrack:
             intensity=jnp.zeros((h >> i, w >> i)))
             for i in range(CFG.pyramid_depth)]
         jT, jst = jtracking.track(lvls, lvls, CFG)
-        tT, tst = tracking.track(_to_port(lvls), _to_port(lvls), CFG)
+        tT, tst = tracking.track(_to_port(lvls), _to_port(lvls), TCFG)
         assert bool(jst.diverged) and bool(tst.diverged)
         np.testing.assert_array_equal(tT.numpy(), np.eye(4))
         np.testing.assert_array_equal(tT.numpy(), np.asarray(jT))
@@ -99,7 +100,7 @@ class TestTrack:
                            normal=torch.full((6, 8, 3), torch.inf),
                            intensity=torch.zeros(6, 8))
         T0 = torch.eye(4)
-        T, div, count, _ = tracking._track_level(lvl, lvl, T0, 3, CFG)
+        T, div, count, _ = tracking._track_level(lvl, lvl, T0, 3, TCFG)
         assert torch.equal(T, T0) and bool(div) and int(count) == 0
 
     def test_normal_equations_match(self):
@@ -119,7 +120,7 @@ class TestTrack:
             jA, jb, jc, jr = jtracking.icp_normal_equations(
                 *(jnp.asarray(x) for x in (v1, n1, v2, n2)), cfg)
             tA, tb, tc, tr = tracking.icp_normal_equations(
-                *(to_t(x) for x in (v1, n1, v2, n2)), cfg)
+                *(to_t(x) for x in (v1, n1, v2, n2)), port_config(cfg))
             assert int(tc) == int(jc)
             np.testing.assert_allclose(tA.numpy(), np.asarray(jA),
                                        rtol=1e-5, atol=1e-5)

@@ -3,16 +3,31 @@
 Inputs are made with numpy from a seed and handed to both packages; data
 crosses as numpy arrays (u32 words as int32 bit patterns, u16 depth as
 int32). torch is pinned to one thread: the test workers share the cores.
+The port's entry points put their tensors on the card unless told
+otherwise, so the CPU tests pass `device=DEVICE`; each package gets its own
+config (`port_config`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from octree_slam_tpu_torch.config import SLAMConfig as PortConfig
 
 torch.set_num_threads(1)
 
 INVALID_KEY = 0x7FFFFFFF
+# where the parity tests run the port
+DEVICE = "cpu"
+
+
+def port_config(jax_cfg) -> PortConfig:
+    """The port's SLAMConfig with every field of the JAX package's one."""
+    return PortConfig(**{f.name: getattr(jax_cfg, f.name)
+                         for f in dataclasses.fields(jax_cfg)})
 
 
 def to_t(x) -> torch.Tensor:
