@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the whole check, one card
-    python3 chip_smoke.py --profile    # also profile one frame by kernel
+    python3 chip_smoke.py --profile    # also profile one splat frame by kernel
+    python3 chip_smoke.py --profile cone         # ... one slab-cone frame
+    python3 chip_smoke.py --profile cone_march   # ... one exact-march frame
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: a CUDA card of compute capability 9.0, strict float32 matmuls;
@@ -18,9 +20,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      map size held to the orbit's known values;
   5. reference: a small stream through the same step on the card and on
      the CPU (the plain versions the CPU tests hold against the JAX
-     package) must agree.
-The last lines are the card's name and power limit, a JSON line of the
-kernels, and {"ok": true, "device": {...}}. Imports nothing of JAX.
+     package) must agree, and so must the slab-cone and exact-march
+     renders of its last frame, their dense mirror and their slab word
+     buffer;
+  6. the slab cone at full width: the same orbit through step("cone");
+  7. the exact march at full width: the same orbit through
+     step("cone_march"), every frame eager, with the march's trip counts
+     and the peak device memory;
+  8. fidelity, as bench.py measures it: a map built by 13 splat frames,
+     the last frame rendered by the slab cone and by the exact march from
+     two copies of the state, and their PSNR (cone_psnr_db); then that
+     heal_for_march is idempotent.
+Every orbit starts with the kernels' launch counts at 0 and must find each
+kernel launched once per frame. The last lines are the card's name and
+power limit, a JSON line of the kernels, and {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import re
 import statistics
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -60,6 +75,9 @@ PEAK_F32_PER_S = 67e12
 # their plain versions, so any change in it is a fault
 ORBIT_ATE_M, ORBIT_ATE_TOL_M = 0.0018455, 1e-7
 ORBIT_MAP_NODES, ORBIT_MAP_LEAVES = 425_760, 73_458
+ORBIT_FRAMES, ORBIT_WARMUP = 14, 2
+# the slab cone against the exact march on one map, in dB
+CONE_PSNR_FLOOR_DB = 25.0
 
 
 class SmokeFailure(RuntimeError):
@@ -232,77 +250,205 @@ def _orbit(cfg, n, step_angle, device):
     return frames, gts
 
 
-def phase_main_path(smi: str, profile: bool):
+class _HostReads:
+    """Counts the host reads that synchronise with the card while it is
+    entered (torch's synchronisation warnings, a prototype that may miss
+    some)."""
+
+    def __enter__(self):
+        # first, outside the record: switching the mode on warns that it
+        # is a prototype
+        torch.cuda.set_sync_debug_mode("warn")
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        self.count = sum("synchroniz" in str(w.message)
+                         for w in self._caught)
+
+
+def _drive_orbit(cfg, frames, gts, render: str):
+    """The orbit through init_state + step(render) with the kernels'
+    launch counts set to 0 just before and read just after; per-frame
+    CUDA-event times of the frames after the warm-up, and the last frame's
+    count of synchronising host reads."""
     from octree_slam_tpu_torch import pipeline
     from octree_slam_tpu_torch.sensor import cuda_ops
     from octree_slam_tpu_torch.utils.metrics import ate_rmse
     from octree_slam_tpu_torch.utils.timing import EventTimer
-    cfg = _bench_config()
-    n_stream, n_warmup = 14, 2
-    frames, gts = _orbit(cfg, n_stream, 0.01, "cuda")
     torch.cuda.synchronize()
-
+    torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
-    for i in range(n_warmup):
-        state, out = pipeline.step(state, frames[i], cfg, render="splat")
+    for i in range(ORBIT_WARMUP):
+        state, out = pipeline.step(state, frames[i], cfg, render=render)
     timer = EventTimer()
     est = []
-    for i in range(n_warmup, n_stream):
+    for i in range(ORBIT_WARMUP, len(frames) - 1):
         with timer.time("frame"):
-            state, out = pipeline.step(state, frames[i], cfg, render="splat")
+            state, out = pipeline.step(state, frames[i], cfg, render=render)
         est.append(out.pose)
+    with _HostReads() as reads, timer.time("frame"):
+        state, out = pipeline.step(state, frames[-1], cfg, render=render)
+    est.append(out.pose)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
 
     ms = timer.ms("frame")
-    med = statistics.median(ms)
-    p90 = float(np.percentile(ms, 90))
-    ate = ate_rmse(np.stack([p.cpu().numpy() for p in est]),
-                   np.stack([g.cpu().numpy() for g in gts[n_warmup:]]))
     fb = out.framebuffer
     res = {
-        "frame_ms_median": med, "frame_ms_p90": p90,
-        "fps": 1000.0 * len(ms) / sum(ms), "ate_rmse_m": ate,
+        "render": render,
+        "frame_ms_median": statistics.median(ms),
+        "frame_ms_p90": float(np.percentile(ms, 90)),
+        "fps": 1000.0 * len(ms) / sum(ms),
+        "ate_rmse_m": ate_rmse(
+            np.stack([p.cpu().numpy() for p in est]),
+            np.stack([g.cpu().numpy() for g in gts[ORBIT_WARMUP:]])),
         "map_nodes": int(out.map_nodes), "map_leaves": int(out.map_leaves),
         "diverged": bool(out.diverged),
         "map_overflowed": bool(out.map_overflowed),
-        "fb_hit_pixels": int((fb[..., 3] > 0).sum()),
-        "launches": launches, "wall_s_with_warmup": wall,
+        "fb_hit_pixels": int((fb[..., :3].sum(-1) > 0).sum()),
+        "launches": launches, "host_reads_last_frame": reads.count,
+        "wall_s_with_warmup": wall,
         "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
     }
-    print(f"[main] {smi} | 640x480 depth 9 2 cm, {len(ms)} timed frames "
-          f"after {n_warmup} warm-up | frame ms median {med:.3f} p90 "
-          f"{p90:.3f} | {res['fps']:.2f} frames/s")
-    print(f"[main] {smi} | " + json.dumps(res))
+    return state, out, res
+
+
+def _check_orbit(smi: str, cfg, out, res, n_frames: int):
+    """The checks every orbit must pass, whatever its render."""
+    tag = f"[{res['render']}]"
+    print(f"{tag} {smi} | 640x480 depth 9 2 cm, {n_frames - ORBIT_WARMUP} "
+          f"timed frames after {ORBIT_WARMUP} warm-up | frame ms median "
+          f"{res['frame_ms_median']:.3f} p90 {res['frame_ms_p90']:.3f} | "
+          f"{res['fps']:.2f} frames/s")
+    print(f"{tag} {smi} | " + json.dumps(res))
+    fb = out.framebuffer
     check(fb.shape == (cfg.height, cfg.width, 4)
-          and bool(torch.isfinite(fb).all()), "framebuffer shape/finiteness")
-    check(not res["diverged"], "tracking diverged")
-    check(not res["map_overflowed"], "map overflowed")
-    check(abs(ate - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
-          f"ATE {ate:.9f} m, expected {ORBIT_ATE_M} +- {ORBIT_ATE_TOL_M} m")
+          and bool(torch.isfinite(fb).all()),
+          f"{tag} framebuffer shape/finiteness")
+    check(not res["diverged"], f"{tag} tracking diverged")
+    check(not res["map_overflowed"], f"{tag} map overflowed")
+    # fusion does not depend on the render: every orbit builds one map
+    check(abs(res["ate_rmse_m"] - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
+          f"{tag} ATE {res['ate_rmse_m']:.9f} m, expected {ORBIT_ATE_M} "
+          f"+- {ORBIT_ATE_TOL_M} m")
     check(res["map_nodes"] == ORBIT_MAP_NODES,
-          f"map nodes {res['map_nodes']}, expected {ORBIT_MAP_NODES}")
+          f"{tag} map nodes {res['map_nodes']}, expected {ORBIT_MAP_NODES}")
     check(res["map_leaves"] == ORBIT_MAP_LEAVES,
-          f"map leaves {res['map_leaves']}, expected {ORBIT_MAP_LEAVES}")
-    check(res["fb_hit_pixels"] > 0, "framebuffer has no hit pixels")
-    check(launches["bilateral7x7"] == n_stream,
-          f"bilateral launches {launches['bilateral7x7']} != {n_stream}")
-    check(launches["gated_pyramid5x5"] == n_stream,
-          f"gated launches {launches['gated_pyramid5x5']} != {n_stream}")
-    if profile:
-        _profile_frame(state, frames[-2:], cfg, med)
-    return launches, n_stream
+          f"{tag} map leaves {res['map_leaves']}, expected "
+          f"{ORBIT_MAP_LEAVES}")
+    check(res["fb_hit_pixels"] > 0, f"{tag} framebuffer has no lit pixels")
+    for name in KERNELS:
+        check(res["launches"][name] == n_frames,
+              f"{tag} {name} launches {res['launches'][name]} != {n_frames}")
 
 
-def _profile_frame(state, frames, cfg, frame_ms):
-    """torch.profiler over the last of `frames` (the first warms the
-    profiler up): host time per step stage, device time per kernel, and
-    the CUDA runtime calls (launches, syncs, copies) by host time. The
+def _march_trips(state, cfg):
+    """Trips that each phase of the exact march needs from state.pose on
+    the state's (current) mirror, and the per-pixel finishing trips."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.render import raycast
+    _, dbg = raycast.cone_trace_dense(
+        state.accel, state.pool.center, state.pool.half_size, state.pose,
+        cfg.focal_x, cfg.focal_y, width=cfg.width, height=cfg.height,
+        max_depth=cfg.max_depth, dist_level=pipeline._accel_level(cfg),
+        max_iters=cfg.max_march_iters, max_range=cfg.max_range,
+        start_dist=cfg.start_dist, debug_iters=True)
+    fin = dbg["fin"].float()
+    return {"p1_trips": int(dbg["p1_trips"]), "p2_trips": int(dbg["p2_trips"]),
+            "fin_trip_median": float(fin.median()),
+            "fin_trip_p99": float(fin.flatten().kthvalue(
+                int(0.99 * fin.numel())).values),
+            "rays_unfinished": int((dbg["fin"] >= cfg.max_march_iters).sum())}
+
+
+def phase_orbit(smi: str, cfg, frames, gts, render: str, profile):
+    """Phases 4, 6 and 7: the orbit through step(render) with the checks
+    every render must pass. A cone_march orbit is eager on every frame (the
+    insert re-mipmaps and updates the dense mirror); its march's trips are
+    printed."""
+    from octree_slam_tpu_torch.render.raycast import EXIT_CHECK_EVERY
+    state, out, res = _drive_orbit(cfg, frames, gts, render)
+    _check_orbit(smi, cfg, out, res, len(frames))
+    # the remainder pager's read of unique_overflow and nothing else; a
+    # march frame adds the heal's read of the stale flags and each march
+    # phase's exit test once every EXIT_CHECK_EVERY trips
+    most = (2 + 2 * (cfg.max_march_iters // EXIT_CHECK_EVERY)
+            if render == "cone_march" else 1)
+    check(1 <= res["host_reads_last_frame"] <= most,
+          f"[{render}] {res['host_reads_last_frame']} host reads in a "
+          f"frame, expected 1 to {most}")
+    if render == "cone_march":
+        check(not bool(state.interior_stale)
+              and not bool(state.mirror_stale),
+              "[cone_march] the march left its map stale")
+        trips = _march_trips(state, cfg)
+        print(f"[cone_march] {smi} | last frame's march: "
+              + json.dumps(trips) + f" of at most {cfg.max_march_iters} "
+              f"trips a phase | peak device memory "
+              f"{res['peak_mem_mb']:.1f} MiB")
+        check(trips["p2_trips"] > 0, "[cone_march] the march sampled nothing")
+    if profile == render:
+        _profile_frame(smi, state, frames[-3:], cfg, res["frame_ms_median"],
+                       render)
+    return res["launches"]
+
+
+def phase_fidelity(smi: str, cfg, frames, gts):
+    """Phase 8: cone_psnr_db as bench.py takes it, on a map built in one
+    pass by splat frames, and the idempotence of heal_for_march."""
+    from octree_slam_tpu_torch import convert, pipeline
+    state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
+    for f in frames[:-1]:
+        state, _ = pipeline.step(state, f, cfg, render="splat")
+    twin = convert.clone_state(state)
+    third = convert.clone_state(state)
+    _, out_cone = pipeline.step(state, frames[-1], cfg, render="cone")
+    _, out_march = pipeline.step(twin, frames[-1], cfg, render="cone_march")
+    for name, o in (("cone", out_cone), ("cone_march", out_march)):
+        check(bool(torch.isfinite(o.framebuffer).all()),
+              f"[fidelity] the {name} image is not finite")
+    d = out_cone.framebuffer[..., :3] - out_march.framebuffer[..., :3]
+    psnr = 10.0 * float(torch.log10(1.0 / torch.clamp((d ** 2).mean(),
+                                                     min=1e-12)))
+    print(f"[fidelity] {smi} | " + json.dumps({
+        "cone_psnr_db": psnr, "floor_db": CONE_PSNR_FLOOR_DB,
+        "map_leaves": int(out_march.map_leaves),
+        "march_lit_pixels": int((out_march.framebuffer[..., :3].sum(-1)
+                                 > 0).sum()),
+        "cone_lit_pixels": int((out_cone.framebuffer[..., :3].sum(-1)
+                                > 0).sum())}))
+    check(psnr >= CONE_PSNR_FLOOR_DB,
+          f"[fidelity] cone_psnr_db {psnr:.2f} under {CONE_PSNR_FLOOR_DB}")
+
+    check(bool(third.interior_stale) and bool(third.mirror_stale),
+          "[fidelity] the splat frames left nothing to heal")
+    pool, cache = pipeline.heal_for_march(third, cfg)
+    first = [pool.value.clone(), cache.values, cache.occ, cache.dist]
+    pool, cache = pipeline.heal_for_march(third._replace(pool=pool), cfg)
+    second = [pool.value, cache.values, cache.occ, cache.dist]
+    moved = [n for n, a, b in zip(("pool.value", "values", "occ", "dist"),
+                                  first, second) if not torch.equal(a, b)]
+    print(f"[fidelity] heal_for_march twice: {len(moved)} of 4 buffers "
+          f"changed {moved}; occupied dist cells {int(cache.occ.sum())}")
+    check(not moved, f"[fidelity] a second heal changed {moved}")
+    check(int(cache.occ.sum()) > 0, "[fidelity] the healed mirror is empty")
+
+
+def _profile_frame(smi, state, frames, cfg, frame_ms, render):
+    """torch.profiler over the second of three `frames` (the first warms
+    the profiler up): host time per step stage, device time per kernel,
+    and the CUDA runtime calls (launches, syncs, copies) by host time. The
     device's idle share is taken against `frame_ms`, the frame median
-    measured without the profiler, which slows the host."""
+    measured without the profiler, which slows the host. The third frame
+    runs with the synchronisation warnings on and counts the host reads."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from octree_slam_tpu_torch import pipeline
     walls, captured = [], []
@@ -310,10 +456,10 @@ def _profile_frame(state, frames, cfg, frame_ms):
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: captured.append(
                      p.key_averages())) as prof:
-        for frame in frames:
+        for frame in frames[:2]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, _ = pipeline.step(state, frame, cfg, render="splat")
+            state, _ = pipeline.step(state, frame, cfg, render=render)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
             prof.step()
@@ -324,47 +470,78 @@ def _profile_frame(state, frames, cfg, frame_ms):
     kernels = [e for e in events if getattr(e, "device_type", None) == cuda
                and e not in ranges]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[profile] one frame: device busy {busy:.3f} ms, "
+    tag = f"[profile {render}]"
+    print(f"{tag} {smi} | one frame: device busy {busy:.3f} ms, "
           f"{sum(e.count for e in kernels)} kernels | frame median without "
           f"the profiler {frame_ms:.3f} ms, so the device is idle "
           f"{100 * (1 - busy / frame_ms):.1f}% of it | host wall of the "
           f"profiled frame {walls[-1]:.3f} ms")
     for e in ranges:
         if e.key.startswith("step.") and e.cpu_time_total > 0:
-            print(f"[profile]   range {e.key:13s} host {e.cpu_time_total / 1e3:8.3f}"
-                  f" ms")
+            print(f"{tag}   range {e.key:13s} host "
+                  f"{e.cpu_time_total / 1e3:8.3f} ms")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
-        print(f"[profile]   kernel {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"{tag}   kernel {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:80]}")
     for e in sorted((e for e in events if e.key.startswith("cuda")),
                     key=lambda e: e.cpu_time_total, reverse=True)[:8]:
-        print(f"[profile]   runtime {e.cpu_time_total / 1e3:8.3f} ms host "
+        print(f"{tag}   runtime {e.cpu_time_total / 1e3:8.3f} ms host "
               f"x{e.count:<5d} {e.key}")
+
+    with _HostReads() as reads:
+        state, _ = pipeline.step(state, frames[2], cfg, render=render)
+    print(f"{tag}   host reads that synchronise, one frame: {reads.count}")
+    if render == "cone_march":
+        print(f"{tag}   march trips: " + json.dumps(_march_trips(state, cfg)))
+
+
+def _differing(name, a, b, limit=0.01):
+    """Count and name the cells where the card's tensor `a` and the CPU's
+    `b` differ; more than `limit` of them is a failure."""
+    a = a.cpu()
+    diff = torch.nonzero((a != b).reshape(-1)).reshape(-1)
+    print(f"[reference]   {name}: {diff.numel()} of {a.numel()} cells differ"
+          + (f", first at {diff[:8].tolist()}" if diff.numel() else ""))
+    check(diff.numel() <= limit * a.numel(),
+          f"[reference] {name}: {diff.numel()} of {a.numel()} cells differ")
+
+
+def _pixels_equal(a, b) -> float:
+    """Share of pixels equal as 8-bit colours. The march's colours often
+    sit exactly on a rounding tie (x.5 of an 8-bit level), where the two
+    devices' last ulp decides the rounding, so a pixel within 1e-4 as
+    floats (0.03 of a level) counts as equal too."""
+    a = a.cpu()
+    same = (torch.round(a * 255) == torch.round(b * 255)) \
+        | ((a - b).abs() <= 1e-4)
+    return float(same.all(-1).float().mean())
 
 
 def phase_reference():
-    """The same small stream through step on the card and on the CPU."""
+    """The same small stream through step on the card and on the CPU, then
+    its last frame again through the slab cone and the exact march from
+    copies of both states."""
     import dataclasses
-    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch import convert, pipeline
+    from octree_slam_tpu_torch.render import conesplat
     cfg = dataclasses.replace(
         _bench_config(), width=64, height=48, focal_x=55.0, focal_y=55.0,
         pyramid_depth=2, pyramid_iters=(6, 6), voxel_resolution=0.05,
         max_depth=6, node_capacity=1 << 14, leaf_capacity=1 << 12,
-        insert_unique_cap=1 << 10)
+        insert_unique_cap=1 << 10, max_march_iters=48)
     frames, gts = _orbit(cfg, 4, 0.015, "cpu")
-    outs = {}
+    outs, states, last = {}, {}, {}
     for dev in ("cuda", "cpu"):
         state = pipeline.init_state(cfg, initial_pose=gts[0], device=dev)
         for f in frames:
             f = type(f)(*(x.to(dev) for x in f))
+            before = convert.clone_state(state)
             state, out = pipeline.step(state, f, cfg)
-        outs[dev] = out
+        outs[dev], states[dev], last[dev] = out, before, f
     g, c = outs["cuda"], outs["cpu"]
     dpose = float((g.pose.cpu() - c.pose).abs().max())
-    same = float((torch.round(g.framebuffer.cpu() * 255)
-                  == torch.round(c.framebuffer * 255)).all(-1)
-                 .float().mean())
+    same = _pixels_equal(g.framebuffer, c.framebuffer)
     print(f"[reference] 64x48 depth 6, 4 frames, card vs CPU: max|d pose| "
           f"{dpose:.2e}, nodes {int(g.map_nodes)} / {int(c.map_nodes)}, "
           f"leaves {int(g.map_leaves)} / {int(c.map_leaves)}, "
@@ -376,21 +553,73 @@ def phase_reference():
     check(same >= 0.99, f"only {same:.4f} of framebuffer pixels agree")
     check(bool(g.diverged) == bool(c.diverged) is False, "diverged")
 
+    # the last frame again, from the state before it, by the new renders
+    spec = conesplat.make_slab_spec(
+        width=cfg.width, height=cfg.height, fx=cfg.focal_x,
+        leaf_size=cfg.voxel_resolution, z_near=cfg.cone_znear,
+        z_far=cfg.max_range, n_slabs=cfg.cone_slabs,
+        max_scale=cfg.cone_max_scale)
+    for render in ("cone", "cone_march"):
+        st, fb = {}, {}
+        for dev in ("cuda", "cpu"):
+            st[dev], out = pipeline.step(convert.clone_state(states[dev]),
+                                         last[dev], cfg, render=render)
+            fb[dev] = out.framebuffer
+            check(bool(torch.isfinite(out.framebuffer).all()),
+                  f"[reference] {render} image on {dev} is not finite")
+        same = _pixels_equal(fb["cuda"], fb["cpu"])
+        print(f"[reference] {render}: framebuffer pixels equal {same:.4f}, "
+              f"lit {int((fb['cuda'][..., :3].sum(-1) > 0).sum())} / "
+              f"{int((fb['cpu'][..., :3].sum(-1) > 0).sum())}")
+        check(same >= 0.99, f"[reference] {render}: only {same:.4f} of "
+              f"framebuffer pixels agree")
+        if render == "cone":
+            bufs = []
+            for dev in ("cuda", "cpu"):
+                lv = st[dev].leaves
+                live = (torch.arange(lv.keys.shape[0], device=dev)
+                        < lv.count) & (lv.keys >= 0)
+                bufs.append(conesplat.slab_scatter_min(
+                    lv.vals, lv.keys, live, st[dev].pool.center,
+                    st[dev].pool.half_size, st[dev].pose, cfg.focal_x,
+                    cfg.focal_y, spec=spec, depth=cfg.max_depth))
+            check(int((bufs[1] != conesplat.EMPTY).sum()) > 0,
+                  "[reference] the slab word buffer is empty")
+            _differing("slab word buffer", *bufs)
+        else:
+            for name in ("values", "occ", "dist"):
+                _differing(f"mirror {name}", getattr(st["cuda"].accel, name),
+                           getattr(st["cpu"].accel, name))
+            check(int(st["cpu"].accel.occ.sum()) > 0,
+                  "[reference] the mirror is empty")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one extra frame by kernel (torch.profiler)")
+    ap.add_argument("--profile", nargs="?", const="splat", default=None,
+                    choices=("splat", "cone", "cone_march"),
+                    help="profile one extra frame of this render by kernel "
+                         "(torch.profiler) and count its host reads")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
     report = phase_kernels()
-    launches, n_frames = phase_main_path(smi, args.profile)
+    cfg = _bench_config()
+    frames, gts = _orbit(cfg, ORBIT_FRAMES, 0.01, "cuda")
+    launches = {"splat": phase_orbit(smi, cfg, frames, gts, "splat",
+                                     args.profile)}
     phase_reference()
+    for render in ("cone", "cone_march"):
+        launches[render] = phase_orbit(smi, cfg, frames, gts, render,
+                                       args.profile)
+    phase_fidelity(smi, cfg, frames, gts)
     # no single PyTorch call computes either function, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": spec["replaces"], "launches": launches[name],
-                "launches_per_frame": launches[name] / n_frames,
+                "replaces": spec["replaces"],
+                "launches": launches["splat"][name],
+                "launches_per_frame": launches["splat"][name] / ORBIT_FRAMES,
+                "launches_by_path": {path: n[name]
+                                     for path, n in launches.items()},
                 **report[name]} for name, spec in KERNELS.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 bench.py's headline configuration (640x480, depth 9, 2 cm leaves, 14-frame
 synthetic orbit, step_angle 0.01, radius 2.0) runs through:
 
-  * JAX on the CPU: pipeline.init_state + pipeline.step(render="splat");
+  * JAX on the CPU: pipeline.init_state + pipeline.step(render=--render,
+    "splat" unless told "cone", "cone_march" or "none");
   * the port on --port-device (cpu by default), the same way, from its own
     init_state (independent run);
   * the port again, but starting every frame from the JAX state of the
@@ -14,12 +15,15 @@ synthetic orbit, step_angle 0.01, radius 2.0) runs through:
     differing key is traced to its float op before it is called a fault.
 
 It prints ATE, map_nodes and map_leaves of each run and the count of leaf
-keys that differ. --scale 2 halves the image (and the focal lengths);
+keys that differ, and per lockstep frame the share of framebuffer pixels
+within 1e-4 of the JAX package's and, after an eager frame, the count of
+dense-mirror words that differ. --scale 2 halves the image (and the focal lengths);
 --no-jax runs the port alone (the card's machine has no jax); --replay
 adds bench.py's second, throughput pass over the same frames, after which
 bench.py reads map_nodes / map_leaves.
 
     JAX_PLATFORMS=cpu python examples/torch_parity_full.py --scale 2
+    JAX_PLATFORMS=cpu python examples/torch_parity_full.py --scale 4 --render cone_march
     python examples/torch_parity_full.py --no-jax --port-device cuda --replay
 """
 
@@ -85,7 +89,7 @@ def _summary(est, frames, n_warmup, out):
             "map_overflowed": bool(out.map_overflowed)}
 
 
-def run_port(cfg, frames, device, n_warmup, replay):
+def run_port(cfg, frames, device, n_warmup, replay, render):
     state = pipeline.init_state(cfg, initial_pose=torch.from_numpy(
         frames[0][2].copy()), device=device)
     est = []
@@ -95,7 +99,8 @@ def run_port(cfg, frames, device, n_warmup, replay):
             if p and i < n_warmup:
                 continue
             state, out = pipeline.step(
-                state, convert.frame_from_numpy(d, c, device=device), cfg)
+                state, convert.frame_from_numpy(d, c, device=device), cfg,
+                render=render)
             if p == 0 and i >= n_warmup:
                 est.append(out.pose.cpu().numpy())
     return _summary(est, frames, n_warmup, out), state
@@ -154,7 +159,7 @@ def _first_divergence(jstate_before, jpyr, jpose, depth, color, cfg):
             f" m; {int((jk != tk).sum())} of {jk.size} point keys flip")
 
 
-def run_jax(cfg, frames, n_warmup):
+def run_jax(cfg, frames, n_warmup, render):
     """The JAX step over the stream, with the port stepped in lockstep
     from each frame's JAX state."""
     import jax
@@ -162,12 +167,10 @@ def run_jax(cfg, frames, n_warmup):
     from octree_slam_tpu import pipeline as jpipeline
     from octree_slam_tpu.config import SLAMConfig as JaxConfig
     from octree_slam_tpu.core.types import Frame
-    # the JAX package's own config, field for field; the splat never reads
-    # the dense mips
-    jcfg = dataclasses.replace(JaxConfig(**{
-        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}),
-        use_dense_mips=False)
-    step = jax.jit(lambda s, f: jpipeline.step(s, f, jcfg))
+    # the JAX package's own config, field for field
+    jcfg = JaxConfig(**{f.name: getattr(cfg, f.name)
+                        for f in dataclasses.fields(cfg)})
+    step = jax.jit(lambda s, f: jpipeline.step(s, f, jcfg, render=render))
     state = jpipeline.init_state(jcfg, initial_pose=jnp.asarray(frames[0][2]))
     est, diag = [], []
     for i, (d, c, _) in enumerate(frames):
@@ -178,12 +181,21 @@ def run_jax(cfg, frames, n_warmup):
             est.append(np.asarray(out.pose))
         ts, to = pipeline.step(
             convert.state_from_numpy(before, cfg, device="cpu"),
-            convert.frame_from_numpy(d, c, device="cpu"), cfg)
+            convert.frame_from_numpy(d, c, device="cpu"), cfg, render=render)
         jk = _leaf_keys(state.leaves.keys, out.map_leaves)
         tk = _leaf_keys(ts.leaves.keys, to.map_leaves)
         row = {"frame": i, "leaf_keys_differ": len(jk ^ tk),
                "pose_max_abs_diff": float(np.abs(
-                   to.pose.numpy() - np.asarray(out.pose)).max())}
+                   to.pose.numpy() - np.asarray(out.pose)).max()),
+               "fb_pixels_within_1e-4": float((np.abs(
+                   to.framebuffer.numpy() - np.asarray(out.framebuffer))
+                   .max(-1) <= 1e-4).mean())}
+        if render == "cone_march" and cfg.use_dense_mips:
+            row["mirror_words_differ"] = {
+                name: int((getattr(ts.accel, name).numpy().view(
+                    np.asarray(getattr(state.accel, name)).dtype)
+                    != np.asarray(getattr(state.accel, name))).sum())
+                for name in ("values", "occ", "dist")}
         if jk != tk:
             row["first_divergence"] = _first_divergence(
                 before, state.last_pyramid, np.asarray(out.pose), d, c, cfg)
@@ -197,6 +209,8 @@ def main(argv=None):
                     help="divide the 640x480 image and focal lengths")
     ap.add_argument("--port-device", default="cpu")
     ap.add_argument("--no-jax", action="store_true")
+    ap.add_argument("--render", default="splat",
+                    choices=("splat", "none", "cone", "cone_march"))
     ap.add_argument("--replay", action="store_true",
                     help="add bench.py's second (throughput) pass")
     args = ap.parse_args(argv)
@@ -207,15 +221,16 @@ def main(argv=None):
     report = {"config": {"width": cfg.width, "height": cfg.height,
                          "max_depth": cfg.max_depth,
                          "voxel_resolution": cfg.voxel_resolution,
-                         "frames": len(frames), "replay": args.replay},
+                         "frames": len(frames), "replay": args.replay,
+                         "render": args.render},
               "port_device": (torch.cuda.get_device_name(0)
                               if args.port_device.startswith("cuda")
                               else "cpu")}
     port, pstate = run_port(cfg, frames, args.port_device, n_warmup,
-                            args.replay)
+                            args.replay, args.render)
     report["port"] = port
     if not args.no_jax:
-        jres, jstate, diag = run_jax(cfg, frames, n_warmup)
+        jres, jstate, diag = run_jax(cfg, frames, n_warmup, args.render)
         report["jax_cpu"] = jres
         jk = _leaf_keys(jstate.leaves.keys, jres["map_leaves"])
         pk = _leaf_keys(pstate.leaves.keys.cpu(), port["map_leaves"])

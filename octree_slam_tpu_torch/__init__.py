@@ -1,4 +1,5 @@
-"""octree-slam-tpu on PyTorch + CUDA: the track -> fuse -> splat slice.
+"""octree-slam-tpu on PyTorch + CUDA: track -> fuse -> render, with the
+splat, slab-cone and exact-march renderers.
 
 A second package beside the JAX reference `octree_slam_tpu`, laid out file
 for file opposite it (each module's docstring names its counterpart). It
@@ -6,17 +7,20 @@ imports torch and numpy, never jax, and nothing of the reference package:
 it keeps its own copies of what it needs from there (`config.SLAMConfig`,
 field for field the reference's, and `utils.metrics.ate_rmse`).
 
-The slice covers `pipeline.init_state` and `pipeline.step` for
-render="splat" and render="none". Both sensor stencils of the reference
-(the 7x7 bilateral filter and the 5x5 gated subsample) run as hand-written
-CUDA kernels for sm_90a (`csrc/sensor_stencils.cu`, bound in
-`sensor/cuda_ops.py`); every other op is plain PyTorch. On CPU tensors the
-kernel wrappers run their plain PyTorch versions instead.
+It covers `pipeline.init_state` and `pipeline.step` for render="splat",
+"cone" (the slab cone), "cone_march" (the exact march over the dense
+mirror of `map/mips.py`, or over the node pool when use_dense_mips is off)
+and "none", lazy and eager interiors, and `pipeline.heal_for_march`. Both
+sensor stencils of the reference (the 7x7 bilateral filter and the 5x5
+gated subsample) run as hand-written CUDA kernels for sm_90a
+(`csrc/sensor_stencils.cu`, bound in `sensor/cuda_ops.py`); every other op
+is plain PyTorch, as the reference reaches no TPU kernel anywhere else. On
+CPU tensors the kernel wrappers run their plain PyTorch versions instead.
 
 The entry points that make tensors (`pipeline.init_state`, `svo.create`,
-`splat.create_leaf_list`, the `sources` constructors and the `convert`
-readers) put them on the card unless the caller names another device, as
-the CPU tests do; without a card they raise.
+`mips.create`, `splat.create_leaf_list`, the `sources` constructors and
+the `convert` readers) put them on the card unless the caller names
+another device, as the CPU tests do; without a card they raise.
 
 Config branches outside the slice raise NotImplementedError (see
 `pipeline.check_supported`).

@@ -4,9 +4,15 @@
 `jax.tree_util.tree_map(np.asarray, state)` and builds the port's
 `SLAMState` on a device; `state_to_numpy` goes back to nested dicts of
 numpy arrays under the reference's field names. u32 words (pool values,
-registry values) cross as int32 bit patterns through `ndarray.view`, u16
-depth crosses as int32, and the render cache (`accel`) is dropped. This
-module reads only numpy arrays, so it needs no jax.
+registry values, the dense mirror) cross as int32 bit patterns through
+`ndarray.view` and u16 depth crosses as int32. The render cache (`accel`)
+crosses by its fields: `values`, `occ`, `dist` of a dense mirror, or
+`entry` of an entry grid. This module reads only numpy arrays, so it needs
+no jax.
+
+`clone_state` copies a port state: `pipeline.step` updates the map in
+place, so a state that is to be stepped or rendered more than one way
+(a fidelity comparison, a test) is cloned first.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ import torch
 
 from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame, PyramidLevel
+from octree_slam_tpu_torch.map.mips import RenderCache
 from octree_slam_tpu_torch.map.svo import SVONodePool
 from octree_slam_tpu_torch.pipeline import SLAMState
+from octree_slam_tpu_torch.render.raycast import AccelGrid
 from octree_slam_tpu_torch.render.splat import LeafList
 
 
@@ -61,8 +69,14 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
         PyramidLevel(vertex=_t(l.vertex, device), normal=_t(l.normal, device),
                      intensity=_t(l.intensity, device))
         for l in np_tree.last_pyramid)
+    ac = np_tree.accel
+    if cfg.use_dense_mips != hasattr(ac, "values"):
+        raise ValueError("state.accel does not fit cfg.use_dense_mips")
+    accel = (RenderCache(values=_t(ac.values, device), occ=_t(ac.occ, device),
+                         dist=_t(ac.dist, device))
+             if cfg.use_dense_mips else AccelGrid(entry=_t(ac.entry, device)))
     return SLAMState(
-        pool=pool, leaves=leaves, accel=None, pose=_t(np_tree.pose, device),
+        pool=pool, leaves=leaves, accel=accel, pose=_t(np_tree.pose, device),
         last_pyramid=pyramid,
         initialized=_t(np_tree.initialized, device),
         frame_idx=_t(np_tree.frame_idx, device),
@@ -90,6 +104,10 @@ def state_to_numpy(state: SLAMState) -> dict:
                    "vals": _np(lv.vals, u32=True),
                    "node2pos": _np(lv.node2pos), "count": _np(lv.count),
                    "overflowed": _np(lv.overflowed)},
+        "accel": ({"values": _np(state.accel.values, u32=True),
+                   "occ": _np(state.accel.occ), "dist": _np(state.accel.dist)}
+                  if isinstance(state.accel, RenderCache)
+                  else {"entry": _np(state.accel.entry)}),
         "pose": _np(state.pose),
         "last_pyramid": [{"vertex": _np(l.vertex), "normal": _np(l.normal),
                           "intensity": _np(l.intensity)}
@@ -98,6 +116,16 @@ def state_to_numpy(state: SLAMState) -> dict:
            for name in ("initialized", "frame_idx", "diverged",
                         "interior_stale", "mirror_stale", "stamps_stale")},
     }
+
+
+def clone_state(state: SLAMState) -> SLAMState:
+    """A copy of `state` that shares no tensor with it."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return type(x)(*map(copy, x)) if hasattr(x, "_fields") \
+            else tuple(map(copy, x))
+    return copy(state)
 
 
 def frame_from_numpy(depth: np.ndarray, color: np.ndarray, timestamp=0.0,

@@ -10,12 +10,15 @@ them to unique leaves with exact int32 colour means, descends the existing
 tree once per unique, allocates every missing tile across all levels with
 one cumsum, and alpha-blends the leaves.
 
-This slice ports the lazy, uncached insert only: the interior mipmap
-(`update_interior=True`), the dense-mip emission, the directory cache
-(`dir_*`), the saturation-gate transition flags, `insert_exact`,
-extraction, growth and queries wait for the slices that need them. The
-pool's `child` and `value` tensors are updated in place (the JAX code
-donates them); the returned pool carries the new scalars.
+The insert is the uncached one, lazy (`update_interior=False`: leaves
+only) or eager (the bottom-up mipmap over the touched paths, and with
+`emit_mips` the (flat index, value) pairs the dense mirror of map/mips.py
+scatters). `tile_topology` and `refresh_interior` rebuild every interior
+value after lazy frames. The directory cache (`dir_*`), the
+saturation-gate transition flags, `insert_exact`, extraction, growth and
+queries wait for the slices that need them. The pool's `child` and `value`
+tensors are updated in place (the JAX code donates them); the returned
+pool carries the new scalars.
 """
 
 from __future__ import annotations
@@ -101,6 +104,9 @@ class InsertStats(NamedTuple):
     touched_leaf_nodes: torch.Tensor  # i32[U] node of every blended leaf, -1 pad
     touched_leaf_keys: torch.Tensor   # i32[U] their keys, INVALID_KEY pad
     touched_leaf_vals: torch.Tensor   # i32[U] their post-blend words
+    mip_idx: torch.Tensor   # i32[M] dense-mirror cells this insert wrote,
+                            #        mips.total_cells(depth) = no cell
+    mip_val: torch.Tensor   # i32[M] their words (emit_mips; else M = 1)
 
 
 def _at(c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -231,17 +237,25 @@ def _descend_alloc(child: torch.Tensor, n_nodes: torch.Tensor,
 def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
            valid: torch.Tensor | None = None, *, depth: int,
            unique_cap: int = 1 << 16, shallow_level: int = 6,
-           min_key: torch.Tensor | None = None):
-    """Fuse a coloured point set into the leaves of the octree (the lazy
-    path: interior values are not refreshed).
+           min_key: torch.Tensor | None = None,
+           update_interior: bool = True, emit_mips: bool = False):
+    """Fuse a coloured point set into the octree: allocate the missing
+    tiles along each key path, alpha-blend the leaf colours and, with
+    `update_interior`, re-mipmap the interior values along the touched
+    paths (svoFromPointCloud). With update_interior=False the mipmap is
+    deferred until `refresh_interior` runs.
 
     points f32[N,3] world coords; colors f32[N,3] in [0,1]; valid optional
     bool[N]. At most `unique_cap` distinct leaves are processed, in sorted
     key order; a frame with more sets stats.unique_overflow and is finished
     exactly by re-running with min_key = stats.last_key until it clears.
-    Returns (pool, stats); pool.child / pool.value are updated in place."""
+    `emit_mips` reports every written node as a (flat index, word) pair of
+    the dense mirror in stats.mip_idx / mip_val. Returns (pool, stats);
+    pool.child / pool.value are updated in place."""
     cap = pool.capacity
     U = unique_cap
+    if emit_mips:
+        from octree_slam_tpu_torch.map import mips
 
     keys, key_valid = morton.encode(points, pool.center, pool.half_size,
                                     depth)
@@ -274,11 +288,50 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
     compaction.scatter_set_(pool.value, torch.where(leaf_ok, cur, cap),
                             blended)
 
+    if emit_mips:
+        no_cell = mips.total_cells(depth)
+        mip_idx_parts = [torch.where(
+            leaf_ok, mips.flat_index(ukeys, depth, depth), no_cell)]
+        mip_val_parts = [blended]
+
     # first-ever-written leaves: the renderer's registry appends these
     is_new_leaf = leaf_ok & (old == packing.EMPTY_VALUE)
     new_leaf_keys, nl_count = compaction.compact(ukeys, is_new_leaf, U,
                                                  fill=-1)
     new_leaf_nodes, _ = compaction.compact(cur, is_new_leaf, U, fill=0)
+
+    # bottom-up mipmap over the unique parents, deepest first so that the
+    # shallower means see refreshed children. Each level works on the U
+    # rows masked to the first row of every parent; the reference compacts
+    # those rows where 8^level < U, a static-shape device that changes no
+    # result.
+    tiles8 = pool.value.view(cap // 8, 8)
+    for level in (range(depth - 1, 0, -1) if update_interior else ()):
+        prefix = morton.level_prefix(ukeys, depth, level)
+        # the level's node has a tile on this row's path iff the path
+        # reached level + 1 (known from the allocation, no gather)
+        mask = compaction.first_occurrence(prefix, ulive) & reached[level]
+        node = torch.where(mask, paths[level - 1], cap)
+        tile = torch.where(mask, pool.child[torch.clamp(node, max=cap - 1)],
+                           0)
+        # tiles are 8-aligned: the 8 children are one row of the tile view
+        packed_v = _mipmap_tiles(
+            tiles8[torch.clamp(tile >> 3, max=cap // 8 - 1)])
+        ok_mip = mask & (tile > 0)
+        compaction.scatter_set_(pool.value, torch.where(ok_mip, node, cap),
+                                packed_v)
+        if emit_mips:
+            mip_idx_parts.append(torch.where(
+                ok_mip, mips.level_offset(level) + prefix, no_cell))
+            mip_val_parts.append(packed_v)
+
+    if emit_mips:
+        mip_idx = torch.cat(mip_idx_parts)
+        mip_val = torch.cat(mip_val_parts)
+    else:
+        mip_idx = torch.full((1,), 2**31 - 1, dtype=torch.int32,
+                             device=ukeys.device)
+        mip_val = torch.zeros((1,), dtype=torch.int32, device=ukeys.device)
 
     unique_overflow = u_count > U
     last_idx = torch.clamp(torch.clamp(u_count, max=U) - 1, 0, U - 1)
@@ -297,6 +350,65 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
         touched_leaf_nodes=torch.where(leaf_ok, cur, -1),
         touched_leaf_keys=torch.where(leaf_ok, ukeys, morton.INVALID_KEY),
         touched_leaf_vals=blended,
+        mip_idx=mip_idx,
+        mip_val=mip_val,
     )
     new_pool = pool._replace(n_nodes=n_nodes, overflowed=pool_overflowed)
     return new_pool, stats
+
+
+def _mipmap_tiles(kid_val: torch.Tensor) -> torch.Tensor:
+    """Parent word of each row of 8 child words i32[T, 8]: mean rgb over
+    the occupied children, max alpha (averageChildren, svo.cu:417-439).
+    The sums are integers below 2^24, exact in float32 in any order."""
+    r, g, b, a = packing.unpack_rgba8(kid_val)
+    occ = (a > packing.OCCUPIED_ALPHA).to(torch.float32)
+    safe = torch.clamp(occ.sum(dim=1), min=1.0)
+
+    def mean(c):
+        return ((c.to(torch.float32) * occ).sum(dim=1) / safe).to(torch.int32)
+
+    return packing.pack_rgba8(mean(r), mean(g), mean(b), a.amax(dim=1))
+
+
+def tile_topology(pool: SVONodePool, *, depth: int):
+    """Per-tile (parent node, level, Morton key) from the child pointers
+    alone: parent[t] is the node whose child pointer is tile t (one inverse
+    scatter), then levels and keys spread root-down in depth-1 gather
+    rounds, level(t) = level(parent's tile) + 1 and key(t) = key(parent's
+    tile) << 3 | (parent & 7). Tile 0 is the root tile (level-1 nodes, key
+    prefix 0); unallocated tiles keep level 0.
+    Returns (parent i32[cap/8], level i32[cap/8], key i32[cap/8])."""
+    cap = pool.capacity
+    nt = cap // 8
+    dev = pool.child.device
+    idx = torch.where(pool.child > 0, pool.child >> 3, nt)
+    parent = torch.full((nt,), -1, dtype=torch.int32, device=dev)
+    compaction.scatter_set_(parent, idx,
+                            torch.arange(cap, dtype=torch.int32, device=dev))
+    level = torch.zeros((nt,), dtype=torch.int32, device=dev)
+    level[0] = 1
+    key = torch.zeros((nt,), dtype=torch.int32, device=dev)
+    pt = torch.clamp(parent, 0, cap - 1) >> 3
+    for _ in range(depth - 1):
+        pl = level[pt]
+        grow = (level == 0) & (parent >= 0) & (pl > 0)
+        level = torch.where(grow, pl + 1, level)
+        key = torch.where(grow, (key[pt] << 3) | (parent & 7), key)
+    return parent, level, key
+
+
+def refresh_interior(pool: SVONodePool, *, depth: int) -> SVONodePool:
+    """Recompute every interior node value bottom-up from the current
+    leaves, in place: per level one row reduce over the tile-major view of
+    the values and one scatter to the parents of that level's tiles. The
+    one-shot companion of insert(update_interior=False), bit-identical to
+    the eager mipmap."""
+    cap = pool.capacity
+    parent, level, _ = tile_topology(pool, depth=depth)
+    for lvl in range(depth, 1, -1):
+        packed = _mipmap_tiles(pool.value.view(cap // 8, 8))
+        sel = (level == lvl) & (parent >= 0)
+        compaction.scatter_set_(pool.value, torch.where(sel, parent, cap),
+                                packed)
+    return pool

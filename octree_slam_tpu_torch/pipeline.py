@@ -3,26 +3,38 @@ octree_slam_tpu/pipeline.py).
 
 `step` runs one frame as plain eager PyTorch on whatever device the state
 lives on: the depth pyramid (one bilateral launch + one gated-pyramid
-launch for both subsampled levels), 19 Gauss-Newton ICP iterations against the previous frame, the
-lazy SVO insert with its unique-cap remainder pages, the leaf-registry
-append, and the splat render. Map state is updated in place where the JAX
-step donates its buffers, so the state passed in must not be reused.
+launch for both subsampled levels), 19 Gauss-Newton ICP iterations against
+the previous frame, the SVO insert with its unique-cap remainder pages, the
+leaf-registry append, and the render: "splat" (z-resolved leaf splat),
+"cone" (slab cone, render/conesplat.py), "cone_march" (the exact march of
+render/raycast.py) or "none". Map state is updated in place where the JAX
+step donates its buffers, so a state passed in must not be reused;
+`convert.clone_state` copies one that has to be.
 
-Its four stages run under torch.profiler ranges ("step.pyramid",
-"step.track", "step.fuse", "step.render"), which cost nothing measurable
-when no profiler is active.
+Splat, slab-cone and "none" frames are lazy when cfg.lazy_interior: the
+insert blends leaves only, and the interior values and the dense mirror
+(`accel`, a mips.RenderCache when cfg.use_dense_mips, else a raycast
+AccelGrid) fall behind, which the three staleness flags record exactly as
+the reference does. A "cone_march" frame, and every frame when
+lazy_interior is off, is eager: it first heals what lazy frames left
+behind (svo.refresh_interior + mips.rebuild_from_pool), then re-mipmaps
+along the touched paths and updates the mirror with the insert.
 
-The reference's on-device `lax.while_loop` remainder pager becomes a Python
-loop that reads `unique_overflow` back once per page: that `.item()` is the
-step's one host sync (one per frame when nothing overflows).
+The step's stages run under torch.profiler ranges ("step.pyramid",
+"step.track", "step.heal", "step.fuse", "step.render"), which cost nothing
+measurable when no profiler is active.
 
-This slice leaves for later, and `check_supported` rejects: keyframe
+Host reads per frame. The reference's on-device `lax.while_loop` remainder
+pager is a Python loop that reads `unique_overflow` back once per page
+(one read when nothing overflows). Its `lax.cond` heal is a read of
+`interior_stale | mirror_stale`, once per eager frame under lazy_interior.
+The marches read their exit tests every raycast.EXIT_CHECK_EVERY trips.
+The splat, slab-cone and "none" frames keep one read per frame.
+
+`check_supported` rejects what is left for later slices: keyframe
 tracking, the saturation gate, the insert directory cache, the photometric
-term (w_rgbd > 0), eager interiors (lazy_interior=False), the host-driven
-pager (device_remainder=False) and every render mode but "splat" and
-"none". The dense-mip mirror is not allocated (`accel` is None); the splat
-path never reads it, and the staleness flags a later slice needs to heal
-it are computed exactly as the reference computes them.
+term (w_rgbd > 0), the host-driven pager (device_remainder=False) and the
+hybrid renderer ("cone_hybrid") with its leaf-level mirror upkeep.
 """
 
 from __future__ import annotations
@@ -34,20 +46,22 @@ from torch.profiler import record_function
 
 from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame, PyramidLevel
-from octree_slam_tpu_torch.map import svo
+from octree_slam_tpu_torch.map import mips, svo
 from octree_slam_tpu_torch.map.svo import SVONodePool
+from octree_slam_tpu_torch.render import conesplat, raycast
 from octree_slam_tpu_torch.render.splat import (LeafList, append_new_leaves,
                                                 create_leaf_list,
                                                 render_splat)
 from octree_slam_tpu_torch.sensor import tracking
 
-RENDER_MODES = ("splat", "none")
+RENDER_MODES = ("splat", "none", "cone", "cone_march")
 
 
 class SLAMState(NamedTuple):
     pool: SVONodePool
     leaves: LeafList
-    accel: object              # dense-mip render cache: None in this slice
+    accel: object              # mips.RenderCache if cfg.use_dense_mips,
+                               # else raycast.AccelGrid
     pose: torch.Tensor         # f32[4,4] world_T_cam
     last_pyramid: Tuple[PyramidLevel, ...]
     initialized: torch.Tensor  # bool[] at least one frame ingested
@@ -78,7 +92,6 @@ def check_supported(cfg: SLAMConfig, render: str = "splat") -> None:
         "saturation_gate": cfg.saturation_gate,
         "insert_dircache": cfg.insert_dircache,
         "w_rgbd > 0": cfg.w_rgbd > 0.0,
-        "lazy_interior=False": not cfg.lazy_interior,
         "device_remainder=False": not cfg.device_remainder,
         f"render={render!r}": render not in RENDER_MODES,
     }
@@ -124,6 +137,7 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
     check_supported(cfg)
     half_size = cfg.voxel_resolution * (2 ** (cfg.max_depth - 1))
     pool = svo.create(cfg.node_capacity, map_center, half_size, device=device)
+    lvl = _accel_level(cfg)
     pose = (torch.eye(4, dtype=torch.float32, device=device)
             if initial_pose is None
             else torch.as_tensor(initial_pose, dtype=torch.float32)
@@ -133,7 +147,9 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
         pool=pool,
         leaves=create_leaf_list(cfg.leaf_capacity, cfg.node_capacity,
                                 device=device),
-        accel=None,
+        accel=(mips.create(max_depth=cfg.max_depth, dist_level=lvl,
+                           max_skip=cfg.dist_max_skip, device=device)
+               if cfg.use_dense_mips else raycast.build_accel(pool, level=lvl)),
         pose=pose,
         last_pyramid=_empty_pyramid(cfg, device),
         initialized=false,
@@ -145,14 +161,42 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
     )
 
 
-def _fuse_once(pool, leaves, world_pts, colors, valid, cfg: SLAMConfig,
+def heal_for_march(state: SLAMState, cfg: SLAMConfig):
+    """Heal lazy-interior staleness for a direct marcher call: lazy frames
+    leave the interior node values and the dense mirror stale, and whatever
+    calls raycast.cone_trace_dense outside `step` must refresh both first
+    (`step` heals itself, and only for render="cone_march"). The pool's
+    values are refreshed in place; the mirror is a new one. Returns (pool,
+    cache) ready for the marcher. Idempotent."""
+    pool = svo.refresh_interior(state.pool, depth=cfg.max_depth)
+    cache = mips.rebuild_from_pool(pool, max_depth=cfg.max_depth,
+                                   dist_level=_accel_level(cfg),
+                                   max_skip=cfg.dist_max_skip)
+    return pool, cache
+
+
+def _fuse_once(pool, leaves, accel, world_pts, colors, valid,
+               cfg: SLAMConfig, *, eager: bool, with_dist: bool,
                min_key=None):
-    """One lazy insert pass plus the registry append."""
+    """One insert pass, the registry append and the dense mirror's upkeep:
+    the one definition behind the step's first insert and its remainder
+    pages. Without dense mips the AccelGrid is not kept up here: only the
+    exact march reads it, and the step's cone_march branch rebuilds it."""
+    lvl = _accel_level(cfg)
+    mirror = cfg.use_dense_mips and eager
     pool, st = svo.insert(pool, world_pts, colors, valid=valid,
                           depth=cfg.max_depth,
                           unique_cap=cfg.insert_unique_cap,
-                          shallow_level=_accel_level(cfg), min_key=min_key)
-    return pool, append_new_leaves(leaves, st), st
+                          shallow_level=lvl, min_key=min_key,
+                          update_interior=eager, emit_mips=mirror)
+    leaves = append_new_leaves(leaves, st)
+    if mirror:
+        # mirror this insert's touched values and occupancy; the distance
+        # field only when the exact march reads it this frame
+        accel = mips.update(accel, st.mip_idx, st.mip_val,
+                            max_depth=cfg.max_depth, dist_level=lvl,
+                            max_skip=cfg.dist_max_skip, with_dist=with_dist)
+    return pool, leaves, accel, st
 
 
 def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
@@ -173,7 +217,7 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
     pose = state.pose @ update_T
     diverged = state.diverged | (state.initialized & tstats.diverged)
 
-    # fuse: fuse-level camera points -> world -> lazy SVO insert. Lost
+    # fuse: fuse-level camera points -> world -> SVO insert. Lost
     # tracking gates fusion (rgbd_camera.cpp:148-151): the sticky flag when
     # a recovery loop can clear it, else this frame's flag alone.
     v = pyramid[cfg.fuse_level].vertex.reshape(-1, 3)
@@ -182,24 +226,80 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
     gate = diverged if cfg.recovery_enabled \
         else (state.initialized & tstats.diverged)
     fuse_ok = (~gate).expand(world_pts.shape[0])
-    with record_function("step.fuse"):
-        pool, leaves, istats = _fuse_once(state.pool, state.leaves,
-                                          world_pts, colors, fuse_ok, cfg)
-        # unique-cap remainder pages, in sorted key order: each leaf still
-        # blends once. The one host read of the step.
-        uo, lk = istats.unique_overflow, istats.last_key
-        while uo.item():
-            pool, leaves, st = _fuse_once(pool, leaves, world_pts, colors,
-                                          fuse_ok, cfg, min_key=lk)
-            uo, lk = st.unique_overflow, st.last_key
+    # An eager frame (the exact march, or lazy_interior off) updates the
+    # mirror incrementally, so it first heals what earlier lazy frames left
+    # behind: the interior values, or a mirror that other renders skipped.
+    eager = (not cfg.lazy_interior) or render == "cone_march"
+    lvl = _accel_level(cfg)
+    pool, accel = state.pool, state.accel
+    if eager and cfg.lazy_interior:
+        with record_function("step.heal"):
+            if (state.interior_stale | state.mirror_stale).item():
+                pool = svo.refresh_interior(pool, depth=cfg.max_depth)
+                if cfg.use_dense_mips:
+                    accel = mips.rebuild_from_pool(
+                        pool, max_depth=cfg.max_depth, dist_level=lvl,
+                        max_skip=cfg.dist_max_skip)
 
-    if render == "splat":
-        with record_function("step.render"):
+    with record_function("step.fuse"):
+        pool, leaves, accel, istats = _fuse_once(
+            pool, state.leaves, accel, world_pts, colors, fuse_ok, cfg,
+            eager=eager, with_dist=(render == "cone_march"))
+        # unique-cap remainder pages, in sorted key order: each leaf still
+        # blends once. One host read per page.
+        uo, lk = istats.unique_overflow, istats.last_key
+        paged = False
+        while uo.item():
+            pool, leaves, accel, st = _fuse_once(
+                pool, leaves, accel, world_pts, colors, fuse_ok, cfg,
+                eager=eager, with_dist=False, min_key=lk)
+            uo, lk = st.unique_overflow, st.last_key
+            paged = True
+        if paged and cfg.use_dense_mips and render == "cone_march":
+            # the pages updated the occupancy without the distance field:
+            # redo it, or this frame's march would skip through the
+            # geometry they inserted
+            accel = mips.refresh_dist(accel, dist_level=lvl,
+                                      max_skip=cfg.dist_max_skip)
+
+    with record_function("step.render"):
+        if render == "cone":
+            spec = conesplat.make_slab_spec(
+                width=cfg.width, height=cfg.height, fx=cfg.focal_x,
+                leaf_size=cfg.voxel_resolution, z_near=cfg.cone_znear,
+                z_far=cfg.max_range, n_slabs=cfg.cone_slabs,
+                max_scale=cfg.cone_max_scale)
+            fb = conesplat.render_cone_splat(
+                leaves, pool.center, pool.half_size, pose, cfg.focal_x,
+                cfg.focal_y, spec=spec, depth=cfg.max_depth)
+        elif render == "cone_march" and cfg.use_dense_mips:
+            s = max(1, cfg.cone_scale)
+            if cfg.width % s or cfg.height % s:
+                raise ValueError("cone_scale must divide the frame size")
+            fb = raycast.cone_trace_dense(
+                accel, pool.center, pool.half_size, pose, cfg.focal_x / s,
+                cfg.focal_y / s, width=cfg.width // s,
+                height=cfg.height // s, max_depth=cfg.max_depth,
+                dist_level=lvl, max_iters=cfg.max_march_iters,
+                max_range=cfg.max_range, start_dist=cfg.start_dist,
+                max_skip=cfg.dist_max_skip)
+            # nearest upsample back to the display resolution
+            fb = conesplat._upsample(fb, s)
+        elif render == "cone_march":
+            # the fuse path does not keep the entry grid up (_fuse_once):
+            # rebuild it for this march frame
+            accel = raycast.build_accel(pool, level=lvl)
+            fb = raycast.cone_trace(
+                pool, pose, cfg.focal_x, cfg.focal_y, width=cfg.width,
+                height=cfg.height, max_depth=cfg.max_depth,
+                max_iters=cfg.max_march_iters, max_range=cfg.max_range,
+                start_dist=cfg.start_dist, accel=accel, accel_level=lvl)
+        elif render == "splat":
             fb = render_splat(pool, leaves, pose, cfg.focal_x, cfg.focal_y,
                               width=cfg.width, height=cfg.height,
                               depth=cfg.max_depth, max_range=cfg.max_range)
-    else:
-        fb = torch.zeros((cfg.height, cfg.width, 4), device=dev)
+        else:
+            fb = torch.zeros((cfg.height, cfg.width, 4), device=dev)
 
     # flags made on the device: torch.tensor(True, device=...) would be a
     # synchronising host-to-device copy
@@ -207,16 +307,18 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
     new_state = SLAMState(
         pool=pool,
         leaves=leaves,
-        accel=state.accel,
+        accel=accel,
         pose=pose,
         last_pyramid=tuple(pyramid),
         initialized=true,
         frame_idx=state.frame_idx + 1,
         diverged=diverged,
-        # every frame of this slice is lazy: interiors and the dense mirror
-        # fall behind, and a splat/none frame never re-stamps
-        interior_stale=true,
-        mirror_stale=true if cfg.use_dense_mips else state.mirror_stale,
+        # an eager frame healed and updated interiors and mirror; a lazy
+        # one leaves both behind. None of these renders stamps the
+        # mirror's free cells (the hybrid's, a later slice).
+        interior_stale=~true if eager else true,
+        mirror_stale=((~true if eager else true) if cfg.use_dense_mips
+                      else state.mirror_stale),
         stamps_stale=(true if cfg.use_dense_mips and cfg.cone_band_fused_dist
                       else ~true),
     )

@@ -7,10 +7,12 @@ static and every count stays on the device, so none of these functions
 synchronises with the host.
 
 `scatter_set_` is the port's form of JAX's `out.at[idx].set(v,
-mode="drop")`: torch raises on an out-of-range index, so dropped rows are
-sent to one guard slot past the end of a scratch copy. The copy costs one
-pass over `out`; it keeps the call free of host syncs (boolean-mask
-indexing would need one).
+mode="drop")`: torch raises on an out-of-range index, so every dropped row
+is pointed at the target of one kept row and given that row's value
+(duplicate writes of one value leave that value). That costs a few ops of
+the width of `idx` and nothing of the size of `out`, which matters for the
+dense mirror's half-gigabyte buffer, and keeps the call free of host syncs
+(boolean-mask indexing would need one).
 """
 
 from __future__ import annotations
@@ -34,13 +36,21 @@ def scatter_set_(out: torch.Tensor, idx: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """out[idx[i]] = values[i] in place along dim 0, dropping rows whose
     index lies outside [0, len(out)). Valid indices must be distinct."""
+    if idx.numel() == 0:
+        return out
     n = out.shape[0]
-    ext = torch.empty((n + 1,) + tuple(out.shape[1:]), dtype=out.dtype,
-                      device=out.device)
-    ext[:n] = out
+    values = values.to(out.dtype)
     ok = (idx >= 0) & (idx < n)
-    ext[torch.where(ok, idx, n).to(torch.int64)] = values.to(out.dtype)
-    out.copy_(ext[:n])
+    safe = torch.where(ok, idx, 0).to(torch.int64)
+    # one kept row stands in for every dropped one; with no kept row, all
+    # rows rewrite out[0] with itself. j stays a 1-element index tensor: a
+    # 0-d one would be read back to the host by the indexing.
+    j = torch.argmax(ok.to(torch.uint8)).reshape(1)
+    trail = (1,) * (values.dim() - 1)
+    tgt0 = torch.where(ok[j], safe[j], 0)
+    val0 = torch.where(ok[j].reshape((1,) + trail), values[j], out[:1])
+    out[torch.where(ok, safe, tgt0)] = torch.where(
+        ok.reshape((-1,) + trail), values, val0)
     return out
 
 

@@ -1,0 +1,121 @@
+"""The cone renderers on the card against the port itself on the CPU.
+Marked `cuda`: without a CUDA device every test skips. The repository's
+conftest imports jax, which the card's machine lacks, so run these there
+with
+
+    python -m pytest tests/test_torch_cuda_render.py --noconftest -q
+
+Tolerances: the two devices' transcendentals (log, exp, log2) differ in the
+last ulp and their ICP sums in their order, so a leaf can move by a cell
+and a ray's sample by a level at isolated pixels: at least 99% of pixels
+equal as 8-bit colours or, where a colour sits on a rounding tie (x.5 of a
+level, common in the march's sums), within 1e-4; map sizes within 1%. The march's exit test read
+every trip, every 4 and every 9 trips gives bit-identical images on one
+device."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from octree_slam_tpu_torch import SLAMConfig, convert, pipeline
+from octree_slam_tpu_torch.render import raycast
+from octree_slam_tpu_torch.sensor import sources
+
+pytestmark = pytest.mark.cuda
+
+CFG = SLAMConfig(width=160, height=120, focal_x=133.0, focal_y=133.0,
+                 voxel_resolution=0.04, max_depth=7, node_capacity=1 << 17,
+                 leaf_capacity=1 << 15, insert_unique_cap=1 << 14,
+                 accel_level=5, max_march_iters=64)
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: compares the card with the CPU")
+    return torch.device("cuda", 0)
+
+
+def _stream(cfg, n):
+    scene = sources.default_scene("cpu")
+    gts = [sources.orbit_pose(i * 0.015, radius=2.0, device="cpu")
+           for i in range(n)]
+    return [sources.render_frame(scene, g, cfg.focal_x, cfg.focal_y,
+                                 width=cfg.width, height=cfg.height)
+            for g in gts], gts
+
+
+def _run(cfg, frames, gts, renders, dev):
+    state = pipeline.init_state(cfg, initial_pose=gts[0], device=dev)
+    for f, render in zip(frames, renders):
+        f = type(f)(*(x.to(dev) for x in f))
+        state, out = pipeline.step(state, f, cfg, render=render)
+    return state, out
+
+
+@pytest.mark.parametrize("change,renders", [
+    ({}, ["splat", "splat", "cone"]),
+    ({}, ["splat", "cone_march", "cone_march"]),
+    ({"use_dense_mips": False}, ["cone", "splat", "cone_march"]),
+    ({"lazy_interior": False}, ["none", "splat", "cone_march"]),
+])
+def test_render_card_matches_cpu(device, change, renders):
+    cfg = dataclasses.replace(CFG, **change)
+    frames, gts = _stream(cfg, len(renders))
+    gs, go = _run(cfg, frames, gts, renders, device)
+    cs, co = _run(cfg, frames, gts, renders, "cpu")
+    assert float((go.pose.cpu() - co.pose).abs().max()) < 1e-4
+    for name in ("map_nodes", "map_leaves"):
+        a, b = int(getattr(go, name)), int(getattr(co, name))
+        assert abs(a - b) <= 0.01 * b, (name, a, b)
+    fb = go.framebuffer.cpu()
+    assert bool(torch.isfinite(fb).all())
+    same = ((torch.round(fb * 255) == torch.round(co.framebuffer * 255))
+            | ((fb - co.framebuffer).abs() <= 1e-4)).all(-1)
+    assert float(same.float().mean()) >= 0.99
+    assert float((fb[..., :3].sum(-1) > 0).float().mean()) > 0.3
+    for flag in ("interior_stale", "mirror_stale", "stamps_stale"):
+        assert bool(getattr(gs, flag)) == bool(getattr(cs, flag)), flag
+    if renders[-1] == "cone_march" and cfg.use_dense_mips:
+        for name in ("values", "occ", "dist"):
+            a, b = getattr(gs.accel, name).cpu(), getattr(cs.accel, name)
+            assert float((a != b).float().mean()) <= 0.01, name
+
+
+def test_exit_check_period_bit_identical_on_the_card(device):
+    frames, gts = _stream(CFG, 3)
+    state, _ = _run(CFG, frames, gts, ["cone_march"] * 3, device)
+    lvl = pipeline._accel_level(CFG)
+    imgs, dbgs = [], []
+    for every in (1, 4, 9):
+        fb, dbg = raycast.cone_trace_dense(
+            state.accel, state.pool.center, state.pool.half_size, state.pose,
+            CFG.focal_x, CFG.focal_y, width=CFG.width, height=CFG.height,
+            max_depth=CFG.max_depth, dist_level=lvl,
+            max_iters=CFG.max_march_iters, debug_iters=True,
+            exit_check_every=every)
+        imgs.append(fb)
+        dbgs.append(dbg)
+    assert 0 < int(dbgs[0]["p2_trips"]) <= CFG.max_march_iters
+    for fb, dbg in zip(imgs[1:], dbgs[1:]):
+        assert torch.equal(fb, imgs[0])
+        for name in ("p1_trips", "p2_trips", "fin"):
+            assert torch.equal(dbg[name], dbgs[0][name]), name
+    accel = raycast.build_accel(state.pool, level=lvl)
+    ptr = [raycast.cone_trace(
+        state.pool, state.pose, CFG.focal_x, CFG.focal_y, width=CFG.width,
+        height=CFG.height, max_depth=CFG.max_depth,
+        max_iters=CFG.max_march_iters, accel=accel, accel_level=lvl,
+        exit_check_every=every) for every in (1, 4, 9)]
+    assert torch.equal(ptr[1], ptr[0]) and torch.equal(ptr[2], ptr[0])
+
+
+def test_clone_state_on_the_card(device):
+    frames, gts = _stream(CFG, 2)
+    state, _ = _run(CFG, frames, gts, ["splat", "splat"], device)
+    twin = convert.clone_state(state)
+    f = type(frames[1])(*(x.to(device) for x in frames[1]))
+    pipeline.step(twin, f, CFG, render="cone_march")
+    assert bool(state.interior_stale)
+    assert int(state.accel.occ.sum()) == 0       # the original is untouched

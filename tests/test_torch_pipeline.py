@@ -1,12 +1,19 @@
-"""Port parity for the whole slice: pipeline.step(render="splat") against
-the JAX package from one carried-over state, the port's own ATE, the
-synthetic sources, state conversion, that the port runs without jax and
-without the JAX package, and that its entry points default to the card.
+"""Port parity for the whole slice: pipeline.step with render "splat",
+"cone" and "cone_march" against the JAX package, from one carried-over
+state and over whole streams that mix the renders (the heal path), the
+port's own ATE, the synthetic sources, state conversion and cloning, that
+the port runs without jax and without the JAX package, and that its entry
+points default to the card.
 
 Tolerances (world points go through a 3x3 product that rounds differently
 in the two libraries, so keys at cell boundaries may flip): poses within
 1e-4, map_nodes / map_leaves within 1%, at least 99% of framebuffer pixels
-identical as 8-bit colours, flags equal."""
+identical as 8-bit colours, flags equal. The streams that start from
+init_state in both packages share their first frame's pose exactly and
+stay closer: nodes, leaves and the three staleness flags equal after every
+frame, at least 99% of framebuffer pixels within 1e-4, and the dense
+mirror (values, occ, dist) equal word for word after every eager frame
+unless a leaf count differs."""
 
 import dataclasses
 import os
@@ -20,21 +27,23 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import DEVICE, orbit_frames, port_config, to_t
+from torch_parity import (DEVICE, assert_mirror_equal, close_share,
+                          orbit_frames, port_config, to_t)
 
 from octree_slam_tpu import pipeline as jpipeline
 from octree_slam_tpu.config import SLAMConfig
 from octree_slam_tpu.sensor import sources as jsources
 from octree_slam_tpu_torch import convert, pipeline
-from octree_slam_tpu_torch.map import svo
-from octree_slam_tpu_torch.render import splat
+from octree_slam_tpu_torch.map import mips, svo
+from octree_slam_tpu_torch.render import raycast, splat
 from octree_slam_tpu_torch.sensor import sources
 from octree_slam_tpu_torch.utils.metrics import ate_rmse
 
 CFG = SLAMConfig(width=64, height=48, focal_x=55.0, focal_y=55.0,
                  pyramid_depth=2, pyramid_iters=(6, 6),
                  voxel_resolution=0.05, max_depth=6, node_capacity=1 << 14,
-                 leaf_capacity=1 << 12, insert_unique_cap=1 << 10)
+                 leaf_capacity=1 << 12, insert_unique_cap=1 << 10,
+                 max_march_iters=48)
 TCFG = port_config(CFG)
 REPO = Path(__file__).resolve().parents[1]
 
@@ -127,10 +136,11 @@ def test_unique_cap_pages_in_step(stream):
     ({"saturation_gate": True}, "splat"),
     ({"insert_dircache": True}, "splat"),
     ({"w_rgbd": 0.1}, "splat"),
-    ({"lazy_interior": False}, "splat"),
+    ({"track_keyframe": True, "lazy_interior": False}, "splat"),
     ({"device_remainder": False}, "splat"),
-    ({}, "cone"),
+    ({"insert_dircache": True}, "cone"),
     ({}, "cone_hybrid"),
+    ({"saturation_gate": True}, "cone_march"),
 ])
 def test_unported_branches_raise(change, render):
     cfg = dataclasses.replace(TCFG, **change)
@@ -170,6 +180,8 @@ def test_port_imports_and_steps_without_jax():
         "from octree_slam_tpu_torch import pipeline, convert, _build\n"
         "from octree_slam_tpu_torch.sensor import sources\n"
         "from octree_slam_tpu_torch.utils import metrics, timing\n"
+        "from octree_slam_tpu_torch.map import mips\n"
+        "from octree_slam_tpu_torch.render import conesplat, raycast\n"
         "cfg = SLAMConfig(width=32, height=24, focal_x=28.0, focal_y=28.0,"
         " pyramid_depth=2, pyramid_iters=(2, 2), voxel_resolution=0.1,"
         " max_depth=5, node_capacity=1 << 12, leaf_capacity=1 << 10,"
@@ -180,6 +192,9 @@ def test_port_imports_and_steps_without_jax():
         "s = pipeline.init_state(cfg, initial_pose=pose, device='cpu')\n"
         "s, out = pipeline.step(s, f, cfg)\n"
         "assert int(out.map_leaves) > 0\n"
+        "for render in ('cone', 'cone_march'):\n"
+        "    s, out = pipeline.step(s, f, cfg, render=render)\n"
+        "    assert float(out.framebuffer[..., :3].max()) > 0\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not [m for m in loaded if m.split('.')[0] in"
         " ('jax', 'octree_slam_tpu')], loaded\n"
@@ -204,6 +219,10 @@ def test_convert_round_trip(stream):
             want = np.asarray(getattr(getattr(ref, group), name))
             assert arr.dtype == want.dtype, (group, name)
             np.testing.assert_array_equal(arr, want, err_msg=name)
+    for name, arr in back["accel"].items():
+        want = np.asarray(getattr(ref.accel, name))
+        assert arr.dtype == want.dtype, name
+        np.testing.assert_array_equal(arr, want, err_msg=name)
     np.testing.assert_array_equal(back["pose"], ref.pose)
     for lvl, want in zip(back["last_pyramid"], ref.last_pyramid):
         np.testing.assert_array_equal(lvl["vertex"], want.vertex)
@@ -220,6 +239,7 @@ def test_entry_points_default_to_the_card():
     calls = [lambda: pipeline.init_state(TCFG),
              lambda: svo.create(64, (0.0, 0.0, 0.0), 1.0),
              lambda: splat.create_leaf_list(8, 64),
+             lambda: mips.create(max_depth=3, dist_level=1),
              lambda: sources.default_scene(),
              lambda: sources.orbit_pose(0.0),
              lambda: convert.frame_from_numpy(
@@ -235,3 +255,155 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+def _frame(depth, color, i):
+    return jsources.Frame(jnp.asarray(depth[i]), jnp.asarray(color[i]),
+                          jnp.float32(0))
+
+
+# each (config, render) pair costs one JAX compile of the whole step, so
+# the streams share configs and stay short
+STREAMS = {
+    "cone": ({}, ["cone"] * 4),
+    "cone_march": ({}, ["cone_march"] * 4),
+    "heal": ({}, ["splat", "cone_march", "splat", "cone_march"]),
+    "heal_after_cone_pointer_march":
+        ({"use_dense_mips": False}, ["cone", "cone_march", "cone_march"]),
+    "eager_every_frame": ({"lazy_interior": False},
+                          ["cone", "cone_march", "cone"]),
+    "paged_half_scale_march":
+        ({"insert_unique_cap": 1 << 8, "cone_scale": 2},
+         ["splat", "cone_march"]),
+}
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_cone_renders_stream_parity(stream, name):
+    change, renders = STREAMS[name]
+    depth, color, gt = stream
+    cfg = dataclasses.replace(CFG, **change)
+    tcfg = port_config(cfg)
+    jstate = jpipeline.init_state(cfg, initial_pose=jnp.asarray(gt[0]))
+    tstate = pipeline.init_state(tcfg, initial_pose=to_t(gt[0]),
+                                 device=DEVICE)
+    assert isinstance(tstate.accel, mips.RenderCache if cfg.use_dense_mips
+                      else raycast.AccelGrid)
+    for i, render in enumerate(renders):
+        jstate, jo = jpipeline.step(jstate, _frame(depth, color, i), cfg,
+                                    render=render)
+        tstate, to = pipeline.step(
+            tstate, convert.frame_from_numpy(depth[i], color[i],
+                                             device=DEVICE), tcfg,
+            render=render)
+        where = f"{name} frame {i} ({render})"
+        np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
+                                   atol=1e-4, err_msg=where)
+        assert int(to.map_nodes) == int(jo.map_nodes), where
+        assert int(to.map_leaves) == int(jo.map_leaves), where
+        for flag in ("interior_stale", "mirror_stale", "stamps_stale"):
+            assert bool(getattr(tstate, flag)) == bool(getattr(jstate, flag)), \
+                (where, flag)
+        assert not bool(to.unique_overflow) and not bool(to.map_overflowed)
+        fb = to.framebuffer
+        assert fb.shape == (CFG.height, CFG.width, 4)
+        assert bool(torch.isfinite(fb).all()), where
+        assert close_share(fb, jo.framebuffer) >= 0.99, where
+        if render != "none":
+            assert float((fb[..., :3].sum(-1) > 0).float().mean()) > 0.3
+        eager = render == "cone_march" or not cfg.lazy_interior
+        if eager and cfg.use_dense_mips:
+            # identical poses so far give identical leaves, and then the
+            # mirrors agree word for word
+            assert_mirror_equal(tstate.accel, jstate.accel, where)
+        if render == "cone_march" and not cfg.use_dense_mips:
+            np.testing.assert_array_equal(tstate.accel.entry.numpy(),
+                                          np.asarray(jstate.accel.entry))
+    assert int(to.map_leaves) > 500
+
+
+def _run_port(cfg, stream, renders):
+    depth, color, gt = stream
+    state = pipeline.init_state(cfg, initial_pose=to_t(gt[0]), device=DEVICE)
+    for i, render in enumerate(renders):
+        state, _ = pipeline.step(
+            state, convert.frame_from_numpy(depth[i], color[i],
+                                            device=DEVICE), cfg,
+            render=render)
+    return state
+
+
+def test_eager_frames_equal_lazy_frames_plus_heal(stream):
+    """The reference's invariant (tests/test_lazy_interior.py): eager
+    inserts followed by nothing leave the pool and the mirror that lazy
+    inserts followed by heal_for_march leave; and the heal is idempotent.
+    The poses do not depend on the interiors, so the leaves are the same."""
+    lazy = _run_port(TCFG, stream, ["splat", "cone", "none"])
+    eager = _run_port(dataclasses.replace(TCFG, lazy_interior=False),
+                      stream, ["none"] * 3)
+    assert bool(lazy.interior_stale) and bool(lazy.mirror_stale)
+    assert not bool(eager.interior_stale) and not bool(eager.mirror_stale)
+    assert not torch.equal(lazy.pool.value, eager.pool.value)
+    # untouched by the lazy frames: the mirror is still empty
+    assert int(lazy.accel.occ.sum()) == 0
+    pool, cache = pipeline.heal_for_march(lazy, TCFG)
+    assert torch.equal(pool.value, eager.pool.value)
+    assert torch.equal(pool.child, eager.pool.child)
+    for name in ("values", "occ"):
+        assert torch.equal(getattr(cache, name),
+                           getattr(eager.accel, name)), name
+    # "none" frames update occ with with_dist=False: dist is the march's
+    eager_dist = mips.refresh_dist(eager.accel, dist_level=4,
+                                   max_skip=TCFG.dist_max_skip).dist
+    assert torch.equal(cache.dist, eager_dist)
+    before = pool.value.clone()
+    pool2, cache2 = pipeline.heal_for_march(lazy._replace(pool=pool), TCFG)
+    assert torch.equal(pool2.value, before)
+    for name in ("values", "occ", "dist"):
+        assert torch.equal(getattr(cache2, name), getattr(cache, name)), name
+
+
+def test_clone_state_shares_nothing(stream):
+    state = _run_port(TCFG, stream, ["cone_march"])
+    twin = convert.clone_state(state)
+    assert type(twin) is type(state)
+    assert type(twin.accel) is type(state.accel)
+    assert isinstance(twin.last_pyramid, tuple)
+    flat = lambda s: [  # noqa: E731
+        t for part in (s.pool, s.leaves, s.accel) for t in part] + [s.pose]
+    for a, b in zip(flat(state), flat(twin)):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    depth, color, _ = stream
+    f = convert.frame_from_numpy(depth[1], color[1], device=DEVICE)
+    kept = convert.clone_state(twin)
+    pipeline.step(twin, f, TCFG, render="cone_march")    # writes in place
+    assert not torch.equal(twin.pool.value, kept.pool.value)
+    assert torch.equal(state.pool.value, kept.pool.value)
+    assert torch.equal(state.accel.values, kept.accel.values)
+    # the three renders of one map, each from its own copy
+    outs = {r: pipeline.step(convert.clone_state(state), f, TCFG,
+                             render=r)[1] for r in ("cone", "cone_march")}
+    assert int(outs["cone"].map_leaves) == int(outs["cone_march"].map_leaves)
+
+
+def test_state_with_mirror_carries_over(stream):
+    """A JAX state with a current mirror continues in the port."""
+    depth, color, gt = stream
+    jstate = jpipeline.init_state(CFG, initial_pose=jnp.asarray(gt[0]))
+    for i in range(2):
+        jstate, _ = jpipeline.step(jstate, _frame(depth, color, i), CFG,
+                                   render="cone_march")
+    tstate = convert.state_from_numpy(_np_state(jstate), TCFG, device=DEVICE)
+    assert_mirror_equal(tstate.accel, jstate.accel, "carried")
+    jstate, jo = jpipeline.step(jstate, _frame(depth, color, 2), CFG,
+                                render="cone_march")
+    tstate, to = pipeline.step(
+        tstate, convert.frame_from_numpy(depth[2], color[2], device=DEVICE),
+        TCFG, render="cone_march")
+    assert close_share(to.framebuffer, jo.framebuffer) >= 0.99
+    assert abs(int(to.map_leaves) - int(jo.map_leaves)) \
+        <= 0.01 * int(jo.map_leaves)
+    with pytest.raises(ValueError):
+        convert.state_from_numpy(
+            _np_state(jstate),
+            dataclasses.replace(TCFG, use_dense_mips=False), device=DEVICE)

@@ -107,3 +107,26 @@ def orbit_frames(cfg, n, step_angle=0.015, radius=2.0):
         colors.append(np.asarray(f.color))
         poses.append(np.asarray(gt))
     return np.stack(depths), np.stack(colors), np.stack(poses)
+
+
+def assert_mirror_equal(tcache, jcache, what=""):
+    """A port RenderCache against a JAX one, word for word."""
+    np.testing.assert_array_equal(words(tcache.values),
+                                  np.asarray(jcache.values),
+                                  err_msg=f"{what} values")
+    np.testing.assert_array_equal(tcache.occ.numpy(), np.asarray(jcache.occ),
+                                  err_msg=f"{what} occ")
+    np.testing.assert_array_equal(tcache.dist.numpy(),
+                                  np.asarray(jcache.dist),
+                                  err_msg=f"{what} dist")
+
+
+def close_share(a, b, tol=1e-4) -> float:
+    """Share of pixels (rows of the last axis) whose every channel agrees
+    within `tol`."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.ndim == 2:
+        a, b = a[..., None], b[..., None]
+    with np.errstate(invalid="ignore"):
+        same = (np.abs(a - b) <= tol) | ((a == b))   # inf == inf counts
+    return float(same.all(-1).mean())
