@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile    # also profile one splat frame by kernel
     python3 chip_smoke.py --profile cone         # ... one slab-cone frame
     python3 chip_smoke.py --profile cone_march   # ... one exact-march frame
+    python3 chip_smoke.py --profile cone_hybrid  # ... one hybrid frame
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: a CUDA card of compute capability 9.0, strict float32 matmuls;
@@ -20,17 +21,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      map size held to the orbit's known values;
   5. reference: a small stream through the same step on the card and on
      the CPU (the plain versions the CPU tests hold against the JAX
-     package) must agree, and so must the slab-cone and exact-march
-     renders of its last frame, their dense mirror and their slab word
-     buffer;
+     package) must agree, and so must the slab-cone, exact-march and
+     hybrid renders of its last frame, their dense mirror and their slab
+     word buffer; then a stream with the keyframe anchor, the saturation
+     gate and the directory cache on, rendered by the hybrid, on both;
   6. the slab cone at full width: the same orbit through step("cone");
   7. the exact march at full width: the same orbit through
      step("cone_march"), every frame eager, with the march's trip counts
      and the peak device memory;
-  8. fidelity, as bench.py measures it: a map built by 13 splat frames,
-     the last frame rendered by the slab cone and by the exact march from
-     two copies of the state, and their PSNR (cone_psnr_db); then that
-     heal_for_march is idempotent.
+  8. the hybrid at full width: the same orbit through step("cone_hybrid")
+     with bench.py's band (57,600 lanes, 24 trips), every frame lazy; at
+     most 3 host reads a frame; afterwards the mirror it kept must equal,
+     word for word, one rebuilt from the pool and stamped; the band's size,
+     the share of its rays still active at the trip cap and the peak
+     device memory are printed;
+  9. the step features at full width: the splat orbit with the insert's
+     directory cache on must end with the splat orbit's leaf registry,
+     node count and ATE; the orbit with the keyframe anchor and the
+     saturation gate on must not diverge, keep its ATE under 0.01 m and
+     end with the mask that rebuild_sat_mask makes;
+ 10. fidelity, as bench.py measures it: a map built by 13 splat frames,
+     the last frame rendered by the slab cone, the exact march and the
+     hybrid from copies of the state, and the two PSNRs against the march
+     (cone_psnr_db, cone_hybrid_psnr_db: the hybrid's must be the higher);
+     then that heal_for_march is idempotent.
 Every orbit starts with the kernels' launch counts at 0 and must find each
 kernel launched once per frame. The last lines are the card's name and
 power limit, a JSON line of the kernels, and {"ok": true, "device":
@@ -40,6 +54,7 @@ power limit, a JSON line of the kernels, and {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -78,6 +93,10 @@ ORBIT_MAP_NODES, ORBIT_MAP_LEAVES = 425_760, 73_458
 ORBIT_FRAMES, ORBIT_WARMUP = 14, 2
 # the slab cone against the exact march on one map, in dB
 CONE_PSNR_FLOOR_DB = 25.0
+# bench.py's hybrid arm: the band's lanes and its trip cap
+HYBRID_BAND = {"cone_band_cap": 57_600, "cone_band_iters": 24}
+# a feature orbit's own trajectory bound (the verify skill's good output)
+FEATURE_ATE_MAX_M = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -271,7 +290,7 @@ class _HostReads:
                          for w in self._caught)
 
 
-def _drive_orbit(cfg, frames, gts, render: str):
+def _drive_orbit(cfg, frames, gts, render: str, label: str):
     """The orbit through init_state + step(render) with the kernels'
     launch counts set to 0 just before and read just after; per-frame
     CUDA-event times of the frames after the warm-up, and the last frame's
@@ -303,7 +322,7 @@ def _drive_orbit(cfg, frames, gts, render: str):
     ms = timer.ms("frame")
     fb = out.framebuffer
     res = {
-        "render": render,
+        "render": render, "path": label,
         "frame_ms_median": statistics.median(ms),
         "frame_ms_p90": float(np.percentile(ms, 90)),
         "fps": 1000.0 * len(ms) / sum(ms),
@@ -321,9 +340,12 @@ def _drive_orbit(cfg, frames, gts, render: str):
     return state, out, res
 
 
-def _check_orbit(smi: str, cfg, out, res, n_frames: int):
-    """The checks every orbit must pass, whatever its render."""
-    tag = f"[{res['render']}]"
+def _check_orbit(smi: str, cfg, out, res, n_frames: int, pinned: bool):
+    """The checks every orbit must pass, whatever its render. `pinned`
+    holds the trajectory and the map to the main orbit's values; an orbit
+    that tracks another way (the keyframe anchor) has its own trajectory
+    and is held to FEATURE_ATE_MAX_M."""
+    tag = f"[{res['path']}]"
     print(f"{tag} {smi} | 640x480 depth 9 2 cm, {n_frames - ORBIT_WARMUP} "
           f"timed frames after {ORBIT_WARMUP} warm-up | frame ms median "
           f"{res['frame_ms_median']:.3f} p90 {res['frame_ms_p90']:.3f} | "
@@ -335,15 +357,23 @@ def _check_orbit(smi: str, cfg, out, res, n_frames: int):
           f"{tag} framebuffer shape/finiteness")
     check(not res["diverged"], f"{tag} tracking diverged")
     check(not res["map_overflowed"], f"{tag} map overflowed")
-    # fusion does not depend on the render: every orbit builds one map
-    check(abs(res["ate_rmse_m"] - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
-          f"{tag} ATE {res['ate_rmse_m']:.9f} m, expected {ORBIT_ATE_M} "
-          f"+- {ORBIT_ATE_TOL_M} m")
-    check(res["map_nodes"] == ORBIT_MAP_NODES,
-          f"{tag} map nodes {res['map_nodes']}, expected {ORBIT_MAP_NODES}")
-    check(res["map_leaves"] == ORBIT_MAP_LEAVES,
-          f"{tag} map leaves {res['map_leaves']}, expected "
-          f"{ORBIT_MAP_LEAVES}")
+    if pinned:
+        # fusion does not depend on the render: every orbit builds one map
+        check(abs(res["ate_rmse_m"] - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
+              f"{tag} ATE {res['ate_rmse_m']:.9f} m, expected {ORBIT_ATE_M} "
+              f"+- {ORBIT_ATE_TOL_M} m")
+        check(res["map_nodes"] == ORBIT_MAP_NODES,
+              f"{tag} map nodes {res['map_nodes']}, expected "
+              f"{ORBIT_MAP_NODES}")
+        check(res["map_leaves"] == ORBIT_MAP_LEAVES,
+              f"{tag} map leaves {res['map_leaves']}, expected "
+              f"{ORBIT_MAP_LEAVES}")
+    else:
+        check(res["ate_rmse_m"] < FEATURE_ATE_MAX_M,
+              f"{tag} ATE {res['ate_rmse_m']:.6f} m, expected under "
+              f"{FEATURE_ATE_MAX_M} m")
+        check(res["map_leaves"] > ORBIT_MAP_LEAVES // 2,
+              f"{tag} map leaves {res['map_leaves']}")
     check(res["fb_hit_pixels"] > 0, f"{tag} framebuffer has no lit pixels")
     for name in KERNELS:
         check(res["launches"][name] == n_frames,
@@ -369,22 +399,82 @@ def _march_trips(state, cfg):
             "rays_unfinished": int((dbg["fin"] >= cfg.max_march_iters).sum())}
 
 
-def phase_orbit(smi: str, cfg, frames, gts, render: str, profile):
-    """Phases 4, 6 and 7: the orbit through step(render) with the checks
-    every render must pass. A cone_march orbit is eager on every frame (the
-    insert re-mipmaps and updates the dense mirror); its march's trips are
-    printed."""
+def _hybrid_mirror_check(smi: str, state, cfg, res):
+    """After a hybrid orbit: the flags a lazy hybrid frame leaves; the
+    band's size and the share of its rays the trip cap cut; and the mirror
+    the frames kept by two scatters a frame against one rebuilt from the
+    refreshed pool and stamped, word for word on the leaf level, occ and
+    dist."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.map import mips
+    from octree_slam_tpu_torch.render import hybrid
+    check(bool(state.interior_stale) and not bool(state.mirror_stale)
+          and not bool(state.stamps_stale),
+          "[cone_hybrid] a lazy hybrid frame must leave interior_stale "
+          "true, mirror_stale and stamps_stale false")
+    lvl = pipeline._accel_level(cfg)
+    _, dbg = hybrid.render_cone_hybrid(
+        state.leaves, state.accel, state.pool.center, state.pool.half_size,
+        state.pose, cfg.focal_x, cfg.focal_y, spec=pipeline._slab_spec(cfg),
+        depth=cfg.max_depth, dist_level=lvl, max_range=cfg.max_range,
+        start_dist=cfg.start_dist, band_cap=cfg.cone_band_cap,
+        band_iters=cfg.cone_band_iters, fused_dist=cfg.cone_band_fused_dist,
+        debug_band=True)
+    lanes = dbg["sel"].numel()
+    band = {"band_lanes": lanes,
+            "band_share_of_pixels": lanes / (cfg.width * cfg.height),
+            "trips": dbg["trips"],
+            "active_at_cap_share": float(dbg["capped"].float().mean()),
+            "marched_share": float(dbg["use_march"].float().mean()),
+            "peak_mem_mb": res["peak_mem_mb"]}
+    print(f"[cone_hybrid] {smi} | last frame's band: " + json.dumps(band))
+    check(lanes == HYBRID_BAND["cone_band_cap"], f"band of {lanes} lanes")
+    check(0.0 < band["marched_share"], "[cone_hybrid] no ray was marched")
+
+    # heal_for_march refreshes the pool it is given in place: give it a copy
+    twin = state._replace(pool=state.pool._replace(
+        child=state.pool.child.clone(), value=state.pool.value.clone()))
+    _, fresh = pipeline.heal_for_march(twin, cfg)
+    fresh = mips.encode_free_dist(fresh, max_depth=cfg.max_depth,
+                                  dist_level=lvl)
+    lo = mips.level_offset(cfg.max_depth)
+    kept = state.accel
+    off = {"leaf level": int((kept.values[lo:] != fresh.values[lo:]).sum()),
+           "occ": int((kept.occ != fresh.occ).sum()),
+           "dist": int((kept.dist != fresh.dist).sum())}
+    stamped = int(((kept.values[lo:] >= 0) & (kept.values[lo:] < 256)).sum())
+    print(f"[cone_hybrid] kept mirror against rebuilt + stamped: differing "
+          f"cells {json.dumps(off)} of {kept.values.numel() - lo} leaf "
+          f"cells, {kept.occ.numel()} dist cells; {stamped} cells stamped, "
+          f"{int(kept.occ.sum())} dist cells occupied")
+    check(not any(off.values()),
+          f"[cone_hybrid] the kept mirror is not the rebuilt one: {off}")
+    check(stamped > 0, "[cone_hybrid] no free cell carries a stamp")
+
+
+def phase_orbit(smi: str, cfg, frames, gts, render: str, profile,
+                label: str | None = None, pinned: bool = True,
+                most_reads: int = 1):
+    """The orbit through step(render) with the checks every render must
+    pass. A cone_march orbit is eager on every frame (the insert re-mipmaps
+    and updates the dense mirror); its march's trips are printed. A
+    cone_hybrid orbit is lazy on every frame and keeps the mirror's leaf
+    level itself. Returns (launches, final state, result)."""
     from octree_slam_tpu_torch.render.raycast import EXIT_CHECK_EVERY
-    state, out, res = _drive_orbit(cfg, frames, gts, render)
-    _check_orbit(smi, cfg, out, res, len(frames))
+    label = label or render
+    state, out, res = _drive_orbit(cfg, frames, gts, render, label)
+    _check_orbit(smi, cfg, out, res, len(frames), pinned)
     # the remainder pager's read of unique_overflow and nothing else; a
     # march frame adds the heal's read of the stale flags and each march
-    # phase's exit test once every EXIT_CHECK_EVERY trips
-    most = (2 + 2 * (cfg.max_march_iters // EXIT_CHECK_EVERY)
-            if render == "cone_march" else 1)
+    # phase's exit test once every EXIT_CHECK_EVERY trips; a lazy hybrid
+    # frame reads the pager (with the new-leaf flag) and the stale flags
+    most = {"cone_march": 2 + 2 * (cfg.max_march_iters // EXIT_CHECK_EVERY),
+            "cone_hybrid": 3}.get(render, most_reads)
     check(1 <= res["host_reads_last_frame"] <= most,
-          f"[{render}] {res['host_reads_last_frame']} host reads in a "
+          f"[{label}] {res['host_reads_last_frame']} host reads in a "
           f"frame, expected 1 to {most}")
+    if render == "cone_hybrid":
+        _hybrid_mirror_check(smi, state, cfg, res)
     if render == "cone_march":
         check(not bool(state.interior_stale)
               and not bool(state.mirror_stale),
@@ -395,38 +485,106 @@ def phase_orbit(smi: str, cfg, frames, gts, render: str, profile):
               f"trips a phase | peak device memory "
               f"{res['peak_mem_mb']:.1f} MiB")
         check(trips["p2_trips"] > 0, "[cone_march] the march sampled nothing")
-    if profile == render:
+    if profile == render and label == render:
         _profile_frame(smi, state, frames[-3:], cfg, res["frame_ms_median"],
                        render)
-    return res["launches"]
+    return res["launches"], state, res
 
 
-def phase_fidelity(smi: str, cfg, frames, gts):
-    """Phase 8: cone_psnr_db as bench.py takes it, on a map built in one
-    pass by splat frames, and the idempotence of heal_for_march."""
+def _sorted_registry(state):
+    """The leaf registry sorted by key, on the host: (keys, words)."""
+    n = int(state.leaves.count)
+    keys, order = torch.sort(state.leaves.keys[:n])
+    return keys.cpu(), state.leaves.vals[:n][order].cpu()
+
+
+def phase_features(smi: str, cfg, frames, gts, splat_registry):
+    """Phase 9: the orbit with the insert's directory cache, held to the
+    splat orbit's map; the orbit with the keyframe anchor and the
+    saturation gate, held to its own ATE bound and to the rebuilt mask."""
+    from octree_slam_tpu_torch import pipeline
+    launches = {}
+    cached = dataclasses.replace(cfg, insert_dircache=True)
+    # a frame with more first-seen keys than the miss lanes pages once more
+    launches["splat+dircache"], state, _ = phase_orbit(
+        smi, cached, frames, gts, "splat", None, label="splat+dircache",
+        most_reads=2)
+    keys, vals = _sorted_registry(state)
+    same = torch.equal(keys, splat_registry[0]) \
+        and torch.equal(vals, splat_registry[1])
+    live = int((state.dir_nodes >= 0).sum())
+    print(f"[splat+dircache] registry of {keys.numel()} leaves equals the "
+          f"uncached orbit's: {same} | directory rows live after the last "
+          f"frame: {live} of {state.dir_nodes.numel()}")
+    check(same, "[splat+dircache] the cached orbit's registry differs from "
+          "the uncached orbit's")
+    check(live > 0, "[splat+dircache] the directory is empty")
+    del state
+
+    anchored = dataclasses.replace(cfg, track_keyframe=True,
+                                   saturation_gate=True)
+    launches["splat+keyframe+gate"], state, _ = phase_orbit(
+        smi, anchored, frames, gts, "splat", None,
+        label="splat+keyframe+gate", pinned=False)
+    rebuilt = pipeline.rebuild_sat_mask(state, anchored)
+    off = int((rebuilt.sat_mask != state.sat_mask).sum())
+    alpha = (state.leaves.vals[:int(state.leaves.count)] >> 24) & 0xFF
+    print(f"[splat+keyframe+gate] sat_mask of {state.sat_mask.numel()} words:"
+          f" {off} differ from rebuild_sat_mask's, "
+          f"{int((state.sat_mask != 0).sum())} non-zero; highest leaf alpha "
+          f"{int(alpha.max())}; anchor moved off the first pose: "
+          f"{not torch.equal(state.key_pose, gts[0])}")
+    check(off == 0, f"[splat+keyframe+gate] {off} mask words differ from "
+          "the rebuilt mask")
+    check(not torch.equal(state.key_pose, gts[0]),
+          "[splat+keyframe+gate] the anchor never moved")
+    return launches
+
+
+def _psnr_db(fb, ref) -> float:
+    d = fb[..., :3] - ref[..., :3]
+    return 10.0 * float(torch.log10(1.0 / torch.clamp((d ** 2).mean(),
+                                                     min=1e-12)))
+
+
+def phase_fidelity(smi: str, cfg, hybrid_cfg, frames, gts):
+    """Phase 10: cone_psnr_db and cone_hybrid_psnr_db as bench.py takes
+    them, on a map built in one pass by splat frames, and the idempotence
+    of heal_for_march."""
     from octree_slam_tpu_torch import convert, pipeline
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
     for f in frames[:-1]:
         state, _ = pipeline.step(state, f, cfg, render="splat")
     twin = convert.clone_state(state)
     third = convert.clone_state(state)
+    fourth = convert.clone_state(state)
     _, out_cone = pipeline.step(state, frames[-1], cfg, render="cone")
     _, out_march = pipeline.step(twin, frames[-1], cfg, render="cone_march")
-    for name, o in (("cone", out_cone), ("cone_march", out_march)):
+    _, out_hyb = pipeline.step(fourth, frames[-1], hybrid_cfg,
+                               render="cone_hybrid")
+    del state, twin, fourth
+    for name, o in (("cone", out_cone), ("cone_march", out_march),
+                    ("cone_hybrid", out_hyb)):
         check(bool(torch.isfinite(o.framebuffer).all()),
               f"[fidelity] the {name} image is not finite")
-    d = out_cone.framebuffer[..., :3] - out_march.framebuffer[..., :3]
-    psnr = 10.0 * float(torch.log10(1.0 / torch.clamp((d ** 2).mean(),
-                                                     min=1e-12)))
+    psnr = _psnr_db(out_cone.framebuffer, out_march.framebuffer)
+    hyb_psnr = _psnr_db(out_hyb.framebuffer, out_march.framebuffer)
     print(f"[fidelity] {smi} | " + json.dumps({
-        "cone_psnr_db": psnr, "floor_db": CONE_PSNR_FLOOR_DB,
+        "cone_psnr_db": psnr, "cone_hybrid_psnr_db": hyb_psnr,
+        "floor_db": CONE_PSNR_FLOOR_DB,
         "map_leaves": int(out_march.map_leaves),
         "march_lit_pixels": int((out_march.framebuffer[..., :3].sum(-1)
                                  > 0).sum()),
         "cone_lit_pixels": int((out_cone.framebuffer[..., :3].sum(-1)
-                                > 0).sum())}))
+                                > 0).sum()),
+        "hybrid_lit_pixels": int((out_hyb.framebuffer[..., :3].sum(-1)
+                                  > 0).sum())}))
     check(psnr >= CONE_PSNR_FLOOR_DB,
           f"[fidelity] cone_psnr_db {psnr:.2f} under {CONE_PSNR_FLOOR_DB}")
+    check(hyb_psnr == hyb_psnr and hyb_psnr < float("inf")
+          and hyb_psnr > psnr,
+          f"[fidelity] cone_hybrid_psnr_db {hyb_psnr:.2f} is not above "
+          f"cone_psnr_db {psnr:.2f}")
 
     check(bool(third.interior_stale) and bool(third.mirror_stale),
           "[fidelity] the splat frames left nothing to heal")
@@ -520,10 +678,11 @@ def _pixels_equal(a, b) -> float:
 
 def phase_reference():
     """The same small stream through step on the card and on the CPU, then
-    its last frame again through the slab cone and the exact march from
-    copies of both states."""
-    import dataclasses
+    its last frame again through the slab cone, the exact march and the
+    hybrid from copies of both states, then the stream once more with the
+    keyframe anchor, the saturation gate and the directory cache on."""
     from octree_slam_tpu_torch import convert, pipeline
+    from octree_slam_tpu_torch.map import mips
     from octree_slam_tpu_torch.render import conesplat
     cfg = dataclasses.replace(
         _bench_config(), width=64, height=48, focal_x=55.0, focal_y=55.0,
@@ -559,7 +718,7 @@ def phase_reference():
         leaf_size=cfg.voxel_resolution, z_near=cfg.cone_znear,
         z_far=cfg.max_range, n_slabs=cfg.cone_slabs,
         max_scale=cfg.cone_max_scale)
-    for render in ("cone", "cone_march"):
+    for render in ("cone", "cone_march", "cone_hybrid"):
         st, fb = {}, {}
         for dev in ("cuda", "cpu"):
             st[dev], out = pipeline.step(convert.clone_state(states[dev]),
@@ -587,17 +746,62 @@ def phase_reference():
                   "[reference] the slab word buffer is empty")
             _differing("slab word buffer", *bufs)
         else:
-            for name in ("values", "occ", "dist"):
-                _differing(f"mirror {name}", getattr(st["cuda"].accel, name),
+            # the march keeps the whole mirror, the hybrid its leaf level
+            lo = (mips.level_offset(cfg.max_depth)
+                  if render == "cone_hybrid" else 0)
+            _differing(f"{render} mirror values from cell {lo}",
+                       st["cuda"].accel.values[lo:],
+                       st["cpu"].accel.values[lo:],
+                       limit=0.0 if render == "cone_hybrid" else 0.01)
+            for name in ("occ", "dist"):
+                _differing(f"{render} mirror {name}",
+                           getattr(st["cuda"].accel, name),
                            getattr(st["cpu"].accel, name))
             check(int(st["cpu"].accel.occ.sum()) > 0,
                   "[reference] the mirror is empty")
+
+    # every optional branch of the step at once, rendered by the hybrid
+    fcfg = dataclasses.replace(cfg, track_keyframe=True, saturation_gate=True,
+                               insert_dircache=True, keyframe_max_dist=0.04)
+    outs, states = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = pipeline.init_state(fcfg, initial_pose=gts[0], device=dev)
+        for f in frames:
+            state, out = pipeline.step(
+                state, type(f)(*(x.to(dev) for x in f)), fcfg,
+                render="cone_hybrid")
+        outs[dev], states[dev] = out, state
+    g, c = outs["cuda"], outs["cpu"]
+    dpose = float((g.pose.cpu() - c.pose).abs().max())
+    same = _pixels_equal(g.framebuffer, c.framebuffer)
+    print(f"[reference] keyframe + gate + cache, hybrid, card vs CPU: "
+          f"max|d pose| {dpose:.2e}, leaves {int(g.map_leaves)} / "
+          f"{int(c.map_leaves)}, framebuffer pixels equal {same:.4f}")
+    check(dpose < 1e-4, "[reference] features: card and CPU poses differ")
+    check(abs(int(g.map_leaves) - int(c.map_leaves))
+          <= 0.01 * int(c.map_leaves), "[reference] features: leaves differ")
+    check(same >= 0.99, f"[reference] features: only {same:.4f} of "
+          f"framebuffer pixels agree")
+    check(not bool(g.diverged) and not bool(c.diverged),
+          "[reference] features: diverged")
+    for name in ("dir_keys", "sat_mask"):
+        _differing(f"features {name}", getattr(states["cuda"], name),
+                   getattr(states["cpu"], name))
+    # one leaf more or less on a device shifts every later registry
+    # position, so the cached positions are held to their own registry
+    for dev, st in states.items():
+        live = st.dir_nodes >= 0
+        check(int(live.sum()) > 0 and torch.equal(
+            st.dir_pos[live], st.leaves.node2pos[st.dir_nodes[live].long()]),
+            f"[reference] features: dir_pos on {dev} is not the registry's")
+    check(not torch.equal(states["cpu"].key_pose, gts[0]),
+          "[reference] features: the anchor never moved")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="splat", default=None,
-                    choices=("splat", "cone", "cone_march"),
+                    choices=("splat", "cone", "cone_march", "cone_hybrid"),
                     help="profile one extra frame of this render by kernel "
                          "(torch.profiler) and count its host reads")
     args = ap.parse_args(argv)
@@ -606,13 +810,19 @@ def main(argv=None):
     report = phase_kernels()
     cfg = _bench_config()
     frames, gts = _orbit(cfg, ORBIT_FRAMES, 0.01, "cuda")
-    launches = {"splat": phase_orbit(smi, cfg, frames, gts, "splat",
-                                     args.profile)}
+    launches = {}
+    launches["splat"], state, _ = phase_orbit(smi, cfg, frames, gts, "splat",
+                                              args.profile)
+    splat_registry = _sorted_registry(state)
+    del state
     phase_reference()
-    for render in ("cone", "cone_march"):
-        launches[render] = phase_orbit(smi, cfg, frames, gts, render,
-                                       args.profile)
-    phase_fidelity(smi, cfg, frames, gts)
+    hybrid_cfg = dataclasses.replace(cfg, **HYBRID_BAND)
+    for render in ("cone", "cone_march", "cone_hybrid"):
+        launches[render], _, _ = phase_orbit(
+            smi, hybrid_cfg if render == "cone_hybrid" else cfg, frames, gts,
+            render, args.profile)
+    launches.update(phase_features(smi, cfg, frames, gts, splat_registry))
+    phase_fidelity(smi, cfg, hybrid_cfg, frames, gts)
     # no single PyTorch call computes either function, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": spec["replaces"],

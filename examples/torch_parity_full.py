@@ -4,7 +4,8 @@ bench.py's headline configuration (640x480, depth 9, 2 cm leaves, 14-frame
 synthetic orbit, step_angle 0.01, radius 2.0) runs through:
 
   * JAX on the CPU: pipeline.init_state + pipeline.step(render=--render,
-    "splat" unless told "cone", "cone_march" or "none");
+    "splat" unless told "cone", "cone_march", "cone_hybrid" (with bench.py's
+    band: 57,600 lanes over --scale squared, 24 trips) or "none");
   * the port on --port-device (cpu by default), the same way, from its own
     init_state (independent run);
   * the port again, but starting every frame from the JAX state of the
@@ -17,13 +18,20 @@ synthetic orbit, step_angle 0.01, radius 2.0) runs through:
 It prints ATE, map_nodes and map_leaves of each run and the count of leaf
 keys that differ, and per lockstep frame the share of framebuffer pixels
 within 1e-4 of the JAX package's and, after an eager frame, the count of
-dense-mirror words that differ. --scale 2 halves the image (and the focal lengths);
+dense-mirror words that differ (after a hybrid frame: of its leaf level,
+occ and dist). --keyframe, --gate and --dircache turn on the keyframe
+anchor, the saturation gate and the insert's directory cache in both
+packages. With --render cone_hybrid it also reports, for each side, the
+PSNR of the slab cone and of the hybrid against the exact march on a map
+built by 13 splat frames, as bench.py takes cone_psnr_db and
+cone_hybrid_psnr_db. --scale 2 halves the image (and the focal lengths);
 --no-jax runs the port alone (the card's machine has no jax); --replay
 adds bench.py's second, throughput pass over the same frames, after which
 bench.py reads map_nodes / map_leaves.
 
     JAX_PLATFORMS=cpu python examples/torch_parity_full.py --scale 2
     JAX_PLATFORMS=cpu python examples/torch_parity_full.py --scale 4 --render cone_march
+    JAX_PLATFORMS=cpu python examples/torch_parity_full.py --scale 8 --render cone_hybrid --dircache
     python examples/torch_parity_full.py --no-jax --port-device cuda --replay
 """
 
@@ -46,13 +54,72 @@ from octree_slam_tpu_torch.map import morton  # noqa: E402
 from octree_slam_tpu_torch.utils.metrics import ate_rmse  # noqa: E402
 
 
-def bench_config(scale: int) -> SLAMConfig:
+def bench_config(scale: int, **features) -> SLAMConfig:
+    """bench.py's configuration with its hybrid arm's band (57,600 lanes at
+    640x480, 24 trips), which only render="cone_hybrid" reads."""
     base = SLAMConfig()
     return SLAMConfig(width=640 // scale, height=480 // scale,
                       focal_x=base.focal_x / scale,
                       focal_y=base.focal_y / scale, max_depth=9,
                       voxel_resolution=0.02, node_capacity=1 << 20,
-                      leaf_capacity=1 << 17)
+                      leaf_capacity=1 << 17,
+                      cone_band_cap=57_600 // (scale * scale),
+                      cone_band_iters=24, **features)
+
+
+def _psnr_db(fb, ref) -> float:
+    d = np.asarray(fb)[..., :3] - np.asarray(ref)[..., :3]
+    return float(10.0 * np.log10(1.0 / max(float((d ** 2).mean()), 1e-12)))
+
+
+def _fidelity(step, init, clone, frames, to_frame) -> dict:
+    """bench.py's fidelity arm with one package's step: 13 splat frames,
+    then the last frame by the slab cone, the exact march and the hybrid
+    from three copies of the state."""
+    state = init(frames[0][2])
+    for d, c, _ in frames[:-1]:
+        state, _ = step(state, to_frame(d, c), "splat")
+    last = to_frame(*frames[-1][:2])
+    fbs = {}
+    for render in ("cone", "cone_hybrid", "cone_march"):
+        _, out = step(clone(state) if render != "cone_march" else state,
+                      last, render)
+        fbs[render] = out.framebuffer
+    to_np = lambda fb: fb.cpu().numpy() if isinstance(fb, torch.Tensor) \
+        else np.asarray(fb)                                    # noqa: E731
+    ref = to_np(fbs["cone_march"])
+    return {"cone_psnr_db": _psnr_db(to_np(fbs["cone"]), ref),
+            "cone_hybrid_psnr_db": _psnr_db(to_np(fbs["cone_hybrid"]), ref)}
+
+
+def fidelity_port(cfg, frames, device) -> dict:
+    return _fidelity(
+        lambda s, f, render: pipeline.step(s, f, cfg, render=render),
+        lambda pose: pipeline.init_state(
+            cfg, initial_pose=torch.from_numpy(pose.copy()), device=device),
+        convert.clone_state, frames,
+        lambda d, c: convert.frame_from_numpy(d, c, device=device))
+
+
+def fidelity_jax(cfg, frames) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from octree_slam_tpu import pipeline as jpipeline
+    from octree_slam_tpu.core.types import Frame
+    jcfg = _jax_config(cfg)
+    return _fidelity(
+        lambda s, f, render: jpipeline.step(s, f, jcfg, render=render),
+        lambda pose: jpipeline.init_state(jcfg,
+                                          initial_pose=jnp.asarray(pose)),
+        lambda s: jax.tree_util.tree_map(jnp.copy, s), frames,
+        lambda d, c: Frame(jnp.asarray(d), jnp.asarray(c), jnp.float32(0)))
+
+
+def _jax_config(cfg):
+    """The JAX package's own config, field for field."""
+    from octree_slam_tpu.config import SLAMConfig as JaxConfig
+    return JaxConfig(**{f.name: getattr(cfg, f.name)
+                        for f in dataclasses.fields(cfg)})
 
 
 def orbit_frames(cfg, n, step_angle, use_jax):
@@ -165,11 +232,9 @@ def run_jax(cfg, frames, n_warmup, render):
     import jax
     import jax.numpy as jnp
     from octree_slam_tpu import pipeline as jpipeline
-    from octree_slam_tpu.config import SLAMConfig as JaxConfig
     from octree_slam_tpu.core.types import Frame
-    # the JAX package's own config, field for field
-    jcfg = JaxConfig(**{f.name: getattr(cfg, f.name)
-                        for f in dataclasses.fields(cfg)})
+    from octree_slam_tpu_torch.map import mips
+    jcfg = _jax_config(cfg)
     step = jax.jit(lambda s, f: jpipeline.step(s, f, jcfg, render=render))
     state = jpipeline.init_state(jcfg, initial_pose=jnp.asarray(frames[0][2]))
     est, diag = [], []
@@ -190,13 +255,24 @@ def run_jax(cfg, frames, n_warmup, render):
                "fb_pixels_within_1e-4": float((np.abs(
                    to.framebuffer.numpy() - np.asarray(out.framebuffer))
                    .max(-1) <= 1e-4).mean())}
-        if render == "cone_march" and cfg.use_dense_mips:
+        if render in ("cone_march", "cone_hybrid") and cfg.use_dense_mips:
+            # a hybrid frame keeps the mirror's leaf level only
+            lo = (mips.level_offset(cfg.max_depth)
+                  if render == "cone_hybrid" else 0)
             row["mirror_words_differ"] = {
                 name: int((getattr(ts.accel, name).numpy().view(
-                    np.asarray(getattr(state.accel, name)).dtype)
-                    != np.asarray(getattr(state.accel, name))).sum())
-                for name in ("values", "occ", "dist")}
-        if jk != tk:
+                    np.asarray(getattr(state.accel, name)).dtype)[cut:]
+                    != np.asarray(getattr(state.accel, name))[cut:]).sum())
+                for name, cut in (("values", lo), ("occ", 0), ("dist", 0))}
+        for name in ("sat_mask", "dir_keys", "dir_pos"):
+            if getattr(ts, name).numel():
+                want = np.asarray(getattr(state, name))
+                row[f"{name}_differ"] = int(
+                    (getattr(ts, name).numpy().view(want.dtype)
+                     != want).sum())
+        if jk != tk and cfg.track_keyframe:
+            row["first_divergence"] = "not traced with the keyframe anchor"
+        elif jk != tk:
             row["first_divergence"] = _first_divergence(
                 before, state.last_pyramid, np.asarray(out.pose), d, c, cfg)
         diag.append(row)
@@ -210,25 +286,40 @@ def main(argv=None):
     ap.add_argument("--port-device", default="cpu")
     ap.add_argument("--no-jax", action="store_true")
     ap.add_argument("--render", default="splat",
-                    choices=("splat", "none", "cone", "cone_march"))
+                    choices=("splat", "none", "cone", "cone_march",
+                             "cone_hybrid"))
+    ap.add_argument("--keyframe", action="store_true",
+                    help="cfg.track_keyframe in both packages")
+    ap.add_argument("--gate", action="store_true",
+                    help="cfg.saturation_gate in both packages")
+    ap.add_argument("--dircache", action="store_true",
+                    help="cfg.insert_dircache in both packages")
     ap.add_argument("--replay", action="store_true",
                     help="add bench.py's second (throughput) pass")
     args = ap.parse_args(argv)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    cfg = bench_config(args.scale)
+    cfg = bench_config(args.scale, track_keyframe=args.keyframe,
+                       saturation_gate=args.gate,
+                       insert_dircache=args.dircache)
     n_warmup = 2
     frames = orbit_frames(cfg, 14, 0.01, use_jax=not args.no_jax)
     report = {"config": {"width": cfg.width, "height": cfg.height,
                          "max_depth": cfg.max_depth,
                          "voxel_resolution": cfg.voxel_resolution,
                          "frames": len(frames), "replay": args.replay,
-                         "render": args.render},
+                         "render": args.render,
+                         "track_keyframe": cfg.track_keyframe,
+                         "saturation_gate": cfg.saturation_gate,
+                         "insert_dircache": cfg.insert_dircache},
               "port_device": (torch.cuda.get_device_name(0)
                               if args.port_device.startswith("cuda")
                               else "cpu")}
     port, pstate = run_port(cfg, frames, args.port_device, n_warmup,
                             args.replay, args.render)
     report["port"] = port
+    if args.render == "cone_hybrid":
+        report["port_fidelity"] = fidelity_port(cfg, frames,
+                                                args.port_device)
     if not args.no_jax:
         jres, jstate, diag = run_jax(cfg, frames, n_warmup, args.render)
         report["jax_cpu"] = jres
@@ -236,6 +327,8 @@ def main(argv=None):
         pk = _leaf_keys(pstate.leaves.keys.cpu(), port["map_leaves"])
         report["independent_runs_leaf_keys_differ"] = len(jk ^ pk)
         report["lockstep"] = diag
+        if args.render == "cone_hybrid":
+            report["jax_cpu_fidelity"] = fidelity_jax(cfg, frames)
     print(json.dumps(report, indent=1))
 
 

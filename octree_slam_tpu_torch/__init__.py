@@ -1,5 +1,5 @@
 """octree-slam-tpu on PyTorch + CUDA: track -> fuse -> render, with the
-splat, slab-cone and exact-march renderers.
+splat, slab-cone, exact-march and hybrid renderers.
 
 A second package beside the JAX reference `octree_slam_tpu`, laid out file
 for file opposite it (each module's docstring names its counterpart). It
@@ -7,10 +7,14 @@ imports torch and numpy, never jax, and nothing of the reference package:
 it keeps its own copies of what it needs from there (`config.SLAMConfig`,
 field for field the reference's, and `utils.metrics.ate_rmse`).
 
-It covers `pipeline.init_state` and `pipeline.step` for render="splat",
-"cone" (the slab cone), "cone_march" (the exact march over the dense
-mirror of `map/mips.py`, or over the node pool when use_dense_mips is off)
-and "none", lazy and eager interiors, and `pipeline.heal_for_march`. Both
+It covers `pipeline.init_state` and the whole of `pipeline.step`:
+render="splat", "cone" (the slab cone), "cone_march" (the exact march over
+the dense mirror of `map/mips.py`, or over the node pool when
+use_dense_mips is off), "cone_hybrid" (the slab cone with its edge band
+marched, `render/hybrid.py`) and "none", lazy and eager interiors, the
+keyframe anchor, the saturation gate, the photometric term, the insert's
+directory cache, the caller-driven pager (`pipeline.insert_remainder`) and
+`pipeline.heal_for_march`. Both
 sensor stencils of the reference (the 7x7 bilateral filter and the 5x5
 gated subsample) run as hand-written CUDA kernels for sm_90a
 (`csrc/sensor_stencils.cu`, bound in `sensor/cuda_ops.py`); every other op
@@ -22,8 +26,9 @@ The entry points that make tensors (`pipeline.init_state`, `svo.create`,
 the `convert` readers) put them on the card unless the caller names
 another device, as the CPU tests do; without a card they raise.
 
-Config branches outside the slice raise NotImplementedError (see
-`pipeline.check_supported`).
+`pipeline.check_supported` raises where the reference does and for four
+band knobs of the hybrid that are not ported (`render/hybrid.py` says
+why).
 """
 
 from octree_slam_tpu_torch.config import SLAMConfig

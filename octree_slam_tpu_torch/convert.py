@@ -4,8 +4,11 @@
 `jax.tree_util.tree_map(np.asarray, state)` and builds the port's
 `SLAMState` on a device; `state_to_numpy` goes back to nested dicts of
 numpy arrays under the reference's field names. u32 words (pool values,
-registry values, the dense mirror) cross as int32 bit patterns through
-`ndarray.view` and u16 depth crosses as int32. The render cache (`accel`)
+registry values, the dense mirror, the directory's values and the
+saturation mask, whose bit 31 is the int32 sign bit) cross as int32 bit
+patterns through `ndarray.view`, never by a cast, and u16 depth crosses as
+int32. The state of a feature that is off crosses as the empty arrays
+`init_state` makes. The render cache (`accel`)
 crosses by its fields: `values`, `occ`, `dist` of a dense mirror, or
 `entry` of an entry grid. This module reads only numpy arrays, so it needs
 no jax.
@@ -29,6 +32,13 @@ from octree_slam_tpu_torch.render.raycast import AccelGrid
 from octree_slam_tpu_torch.render.splat import LeafList
 
 
+# state fields that are one array each; the u32 ones come back as uint32
+_PLAIN = ("initialized", "frame_idx", "diverged", "interior_stale",
+          "key_pose", "key_T_cam", "dir_keys", "dir_nodes", "dir_vals",
+          "dir_pos", "sat_mask", "mirror_stale", "stamps_stale")
+_U32 = ("dir_vals", "sat_mask")
+
+
 def _t(x, device, dtype=None) -> torch.Tensor:
     a = np.array(x, order="C", copy=True)   # keeps 0-d arrays 0-d
     if a.dtype == np.uint32:
@@ -47,16 +57,18 @@ def _expect_len(name: str, arr, n: int) -> None:
 
 def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
     """Port state from a reference SLAMState whose leaves are numpy
-    arrays. Capacities must match `cfg`; state of an unported feature
-    (directory cache, saturation mask, keyframe anchor) is rejected."""
+    arrays. Capacities must match `cfg`."""
     p, lv = np_tree.pool, np_tree.leaves
     _expect_len("pool.child", p.child, cfg.node_capacity)
     _expect_len("leaves.keys", lv.keys, cfg.leaf_capacity)
     _expect_len("leaves.node2pos", lv.node2pos, cfg.node_capacity)
-    for name in ("dir_keys", "sat_mask", "key_pose"):
-        if np.asarray(getattr(np_tree, name)).size:
-            raise NotImplementedError(
-                f"state carries {name}: that feature is not ported yet")
+    _expect_len("dir_keys", np_tree.dir_keys,
+                cfg.insert_unique_cap if cfg.insert_dircache else 0)
+    _expect_len("sat_mask", np_tree.sat_mask,
+                (1 << (3 * cfg.max_depth)) // 32 if cfg.saturation_gate
+                else 0)
+    if bool(len(np_tree.key_pyramid)) != cfg.track_keyframe:
+        raise ValueError("state.key_pyramid does not fit cfg.track_keyframe")
     pool = SVONodePool(
         child=_t(p.child, device), value=_t(p.value, device),
         n_nodes=_t(p.n_nodes, device), center=_t(p.center, device),
@@ -65,10 +77,12 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
         keys=_t(lv.keys, device), nodes=_t(lv.nodes, device),
         vals=_t(lv.vals, device), node2pos=_t(lv.node2pos, device),
         count=_t(lv.count, device), overflowed=_t(lv.overflowed, device))
-    pyramid = tuple(
-        PyramidLevel(vertex=_t(l.vertex, device), normal=_t(l.normal, device),
-                     intensity=_t(l.intensity, device))
-        for l in np_tree.last_pyramid)
+    def pyramid_of(levels):
+        return tuple(
+            PyramidLevel(vertex=_t(l.vertex, device),
+                         normal=_t(l.normal, device),
+                         intensity=_t(l.intensity, device)) for l in levels)
+
     ac = np_tree.accel
     if cfg.use_dense_mips != hasattr(ac, "values"):
         raise ValueError("state.accel does not fit cfg.use_dense_mips")
@@ -77,13 +91,9 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
              if cfg.use_dense_mips else AccelGrid(entry=_t(ac.entry, device)))
     return SLAMState(
         pool=pool, leaves=leaves, accel=accel, pose=_t(np_tree.pose, device),
-        last_pyramid=pyramid,
-        initialized=_t(np_tree.initialized, device),
-        frame_idx=_t(np_tree.frame_idx, device),
-        diverged=_t(np_tree.diverged, device),
-        interior_stale=_t(np_tree.interior_stale, device),
-        mirror_stale=_t(np_tree.mirror_stale, device),
-        stamps_stale=_t(np_tree.stamps_stale, device))
+        last_pyramid=pyramid_of(np_tree.last_pyramid),
+        key_pyramid=pyramid_of(np_tree.key_pyramid),
+        **{name: _t(getattr(np_tree, name), device) for name in _PLAIN})
 
 
 def _np(t: torch.Tensor, u32: bool = False) -> np.ndarray:
@@ -109,12 +119,12 @@ def state_to_numpy(state: SLAMState) -> dict:
                   if isinstance(state.accel, RenderCache)
                   else {"entry": _np(state.accel.entry)}),
         "pose": _np(state.pose),
-        "last_pyramid": [{"vertex": _np(l.vertex), "normal": _np(l.normal),
-                          "intensity": _np(l.intensity)}
-                         for l in state.last_pyramid],
-        **{name: _np(getattr(state, name))
-           for name in ("initialized", "frame_idx", "diverged",
-                        "interior_stale", "mirror_stale", "stamps_stale")},
+        **{which: [{"vertex": _np(l.vertex), "normal": _np(l.normal),
+                    "intensity": _np(l.intensity)}
+                   for l in getattr(state, which)]
+           for which in ("last_pyramid", "key_pyramid")},
+        **{name: _np(getattr(state, name), u32=name in _U32)
+           for name in _PLAIN},
     }
 
 

@@ -24,8 +24,9 @@ Memory: sum_{l=1..D} 8^l words of 4 bytes, 613 MB at D=9 and 9.6 MB at D=7
 (SLAMConfig.use_dense_mips turns it off). Words are int32 bit patterns, as
 everywhere in the port.
 
-`encode_free_dist` and its permutation serve only the hybrid renderer and
-wait for that slice.
+`encode_free_dist` stamps the mirror's free leaf cells with their covering
+dist cell's distance, in place, for the hybrid renderer's one-gather band
+march (render/hybrid.py).
 """
 
 from __future__ import annotations
@@ -192,6 +193,57 @@ def _morton_to_xyz_perm(level: int) -> np.ndarray:
 def _perm_on(level: int, device: str) -> torch.Tensor:
     """_morton_to_xyz_perm on a device, copied there once."""
     return torch.from_numpy(_morton_to_xyz_perm(level)).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def _xyz_of_morton_perm(level: int) -> np.ndarray:
+    """Permutation q with morton_ordered[m] = xyz_linear[q[m]] for a
+    2^level grid (a host-side constant)."""
+    g = 1 << level
+    m = np.arange(g * g * g, dtype=np.int64)
+    x = np.zeros_like(m)
+    y = np.zeros_like(m)
+    z = np.zeros_like(m)
+    for b in range(level):
+        x |= ((m >> (3 * b)) & 1) << b
+        y |= ((m >> (3 * b + 1)) & 1) << b
+        z |= ((m >> (3 * b + 2)) & 1) << b
+    return z * g * g + y * g + x
+
+
+@functools.lru_cache(maxsize=4)
+def _xyz_perm_on(level: int, device: str) -> torch.Tensor:
+    """_xyz_of_morton_perm on a device, copied there once."""
+    return torch.from_numpy(_xyz_of_morton_perm(level)).to(device)
+
+
+def encode_free_dist(cache: RenderCache, *, max_depth: int,
+                     dist_level: int) -> RenderCache:
+    """Stamp each free leaf cell of the dense mirror with the Chebyshev
+    distance of its covering dist cell: the contract of the one-gather band
+    march (render/hybrid.py, fused_dist).
+
+    A free cell's word becomes the plain distance (<= max_skip < 256, so it
+    lies in the low byte and the alpha byte is 0): every reader of alpha or
+    occupancy still sees the cell as unoccupied (alpha 0 against
+    EMPTY_VALUE's 127, both <= OCCUPIED_ALPHA), and a renderer weights
+    colour by alpha, so the payload is never shown. Occupied cells keep
+    their word. Interior levels are never stamped.
+
+    Each dist cell's 8^(max_depth - dist_level) leaves are contiguous in the
+    Morton-ordered leaf level, so the stamp is one select over a
+    [G^3, per_cell] view of the leaf region, written in place: the region
+    is 2^27 words at depth 9, and a copy of it would double the mirror for
+    a moment. An int32 word is occupied iff its alpha's top bit is set,
+    i.e. iff it is negative, which keeps the only temporary a bool mask.
+    Run again whenever `dist` is recomputed; between runs leaf scatters
+    touch occupied cells only, so the stamps stay current. Idempotent."""
+    lo = level_offset(max_depth)
+    per_cell = 1 << (3 * (max_depth - dist_level))
+    dist_m = cache.dist[_xyz_perm_on(dist_level, str(cache.dist.device))]
+    lv = cache.values[lo:].view(-1, per_cell)
+    torch.where(lv < 0, lv, dist_m[:, None], out=lv)
+    return cache
 
 
 def _occ_of_values(values: torch.Tensor, dist_level: int) -> torch.Tensor:

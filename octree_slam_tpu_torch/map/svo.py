@@ -10,15 +10,16 @@ them to unique leaves with exact int32 colour means, descends the existing
 tree once per unique, allocates every missing tile across all levels with
 one cumsum, and alpha-blends the leaves.
 
-The insert is the uncached one, lazy (`update_interior=False`: leaves
-only) or eager (the bottom-up mipmap over the touched paths, and with
-`emit_mips` the (flat index, value) pairs the dense mirror of map/mips.py
-scatters). `tile_topology` and `refresh_interior` rebuild every interior
-value after lazy frames. The directory cache (`dir_*`), the
-saturation-gate transition flags, `insert_exact`, extraction, growth and
-queries wait for the slices that need them. The pool's `child` and `value`
-tensors are updated in place (the JAX code donates them); the returned
-pool carries the new scalars.
+The insert is lazy (`update_interior=False`: leaves only) or eager (the
+bottom-up mipmap over the touched paths, and with `emit_mips` the (flat
+index, value) pairs the dense mirror of map/mips.py scatters). A lazy
+insert can take last frame's directory (`dir_*`: leaf key -> node, value,
+registry position) and then descends only for the keys it misses.
+`tile_topology` and `refresh_interior` rebuild every interior value after
+lazy frames. `insert_exact`, extraction, growth and queries wait for the
+slices that need them. The pool's `child` and `value` tensors are updated
+in place (the JAX code donates them); the returned pool carries the new
+scalars.
 """
 
 from __future__ import annotations
@@ -98,12 +99,18 @@ class InsertStats(NamedTuple):
                                    #        re-insert with min_key=last_key
     last_key: torch.Tensor         # i32[] largest unique key processed
     shallow_allocs: torch.Tensor   # i32[] new tiles at levels <= shallow_level
+    dir_hits: torch.Tensor         # i32[] directory hits, -1 = no directory
+    hit_aux: torch.Tensor          # i32[U] dir_aux of the hit rows, else -1
     new_leaf_keys: torch.Tensor    # i32[U] keys of first-seen leaves, -1 pad
     new_leaf_nodes: torch.Tensor   # i32[U] node indices of those leaves
     new_leaf_count: torch.Tensor   # i32[]
     touched_leaf_nodes: torch.Tensor  # i32[U] node of every blended leaf, -1 pad
     touched_leaf_keys: torch.Tensor   # i32[U] their keys, INVALID_KEY pad
     touched_leaf_vals: torch.Tensor   # i32[U] their post-blend words
+    sat_transition: torch.Tensor   # bool[U] rows whose alpha reached 255 in
+                                   #         this insert: once in a leaf's
+                                   #         life, so the saturation mask may
+                                   #         add each leaf's bit
     mip_idx: torch.Tensor   # i32[M] dense-mirror cells this insert wrote,
                             #        mips.total_cells(depth) = no cell
     mip_val: torch.Tensor   # i32[M] their words (emit_mips; else M = 1)
@@ -234,11 +241,39 @@ def _descend_alloc(child: torch.Tensor, n_nodes: torch.Tensor,
     return n_nodes + 8 * n_new, paths, reached, n_new, shallow
 
 
+def _dir_lookup(dkeys: torch.Tensor, qkeys: torch.Tensor) -> torch.Tensor:
+    """For each query key the directory row that holds it, or -1. The
+    directory is last frame's touched_leaf_keys: unique keys in any row
+    order, INVALID_KEY on dead rows. One stable sort of the concatenation
+    puts each query right after its directory row (directory rows come
+    first, so they stay ahead of an equal query key): a merge in one sort
+    instead of a binary search's chain of dependent gathers."""
+    C, U = dkeys.shape[0], qkeys.shape[0]
+    dev = qkeys.device
+    # directory rows carry their row index (>= 0), queries -(pos + 1)
+    payload = torch.cat([torch.arange(C, dtype=torch.int32, device=dev),
+                         -1 - torch.arange(U, dtype=torch.int32, device=dev)])
+    sk, order = torch.sort(torch.cat([dkeys, qkeys]), stable=True)
+    sp = payload[order]
+    minus1 = sk.new_full((1,), -1)
+    prev_k = torch.cat([minus1, sk[:-1]])
+    prev_p = torch.cat([minus1, sp[:-1]])
+    is_q = sp < 0
+    hit_r = torch.where(is_q & (prev_k == sk) & (prev_p >= 0)
+                        & (sk != morton.INVALID_KEY), prev_p, -1)
+    out = sk.new_full((U,), -1)
+    return compaction.scatter_set_(out, torch.where(is_q, -1 - sp, U), hit_r)
+
+
 def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
            valid: torch.Tensor | None = None, *, depth: int,
            unique_cap: int = 1 << 16, shallow_level: int = 6,
            min_key: torch.Tensor | None = None,
-           update_interior: bool = True, emit_mips: bool = False):
+           update_interior: bool = True, emit_mips: bool = False,
+           dir_keys: torch.Tensor | None = None,
+           dir_nodes: torch.Tensor | None = None,
+           dir_vals: torch.Tensor | None = None,
+           dir_aux: torch.Tensor | None = None, miss_cap: int = 0):
     """Fuse a coloured point set into the octree: allocate the missing
     tiles along each key path, alpha-blend the leaf colours and, with
     `update_interior`, re-mipmap the interior values along the touched
@@ -250,12 +285,36 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
     key order; a frame with more sets stats.unique_overflow and is finished
     exactly by re-running with min_key = stats.last_key until it clears.
     `emit_mips` reports every written node as a (flat index, word) pair of
-    the dense mirror in stats.mip_idx / mip_val. Returns (pool, stats);
-    pool.child / pool.value are updated in place."""
+    the dense mirror in stats.mip_idx / mip_val.
+
+    dir_keys / dir_nodes / dir_vals / dir_aux with miss_cap > 0 turn on
+    the directory cache (lazy inserts only): the last insert's
+    touched_leaf_keys / _nodes / _vals answer repeat keys without the
+    descent and without the pool-value gather, and only the first-seen
+    keys descend, on miss_cap lanes. dir_aux is a payload the caller
+    chooses, handed back for the hits as stats.hit_aux (the pipeline keeps
+    registry positions there). A frame with more than miss_cap misses
+    defers every unique from the first dropped miss on to the unique-cap
+    pager (unique_overflow + last_key), whose pages run uncached. The
+    result equals the uncached insert's bit for bit as long as the
+    directory is current: callers clear it whenever keys, node indices,
+    registry positions or leaf values change under the map.
+
+    Returns (pool, stats); pool.child / pool.value are updated in place."""
     cap = pool.capacity
     U = unique_cap
     if emit_mips:
         from octree_slam_tpu_torch.map import mips
+    use_cache = dir_keys is not None and miss_cap > 0
+    if use_cache and (update_interior or emit_mips):
+        raise ValueError(
+            "the directory cache serves only the lazy leaf path: the "
+            "interior mipmap and the dense-mirror pairs need the full "
+            "per-level paths, which cache hits skip")
+    if use_cache and (dir_nodes is None or dir_vals is None
+                      or dir_aux is None):
+        raise ValueError("the directory cache needs dir_nodes, dir_vals "
+                         "and dir_aux beside dir_keys")
 
     keys, key_valid = morton.encode(points, pool.center, pool.half_size,
                                     depth)
@@ -276,14 +335,66 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
                       (spacked >> 16) & 0xFF], dim=-1)
 
     ukeys, mean_rgb, ulive, u_count = _unique_compact(skeys, svalid, sc, U)
-    n_nodes, paths, reached, total_new, shallow = _descend_alloc(
-        pool.child, pool.n_nodes, ukeys, ulive, cap=cap, depth=depth,
-        shallow_level=shallow_level)
-    cur = paths[-1]
-    old = pool.value[cur]
+    dev = ukeys.device
+    if use_cache:
+        # The directory holds only keys whose leaf existed after the last
+        # insert, so a hit needs no allocation and is reached by
+        # construction; its cached value is current because every other
+        # writer of leaves touches other keys or clears the directory.
+        rows = torch.arange(U, dtype=torch.int32, device=dev)
+        j = _dir_lookup(dir_keys, ukeys)
+        js = torch.clamp(j, 0, dir_keys.shape[0] - 1)
+        hit = ulive & (j >= 0)
+        hit_nodes = torch.where(hit, dir_nodes[js], 0)
+        hit_vals = dir_vals[js]
+        hit_aux = torch.where(hit, dir_aux[js], -1)
+
+        miss = ulive & ~hit
+        miss_ranks, m_total = compaction.exclusive_ranks(miss)
+        m_over = m_total > miss_cap
+        # every unique from the first dropped miss on defers, hits
+        # included: the pager needs the key order contiguous
+        first_drop = torch.min(torch.where(miss & (miss_ranks >= miss_cap),
+                                           rows, U))
+        keep = ulive & (rows < first_drop)
+        hit = hit & keep
+        miss = miss & keep
+
+        mrow = torch.arange(miss_cap, dtype=torch.int32, device=dev)
+        (mkeys, mpos), m_count = compaction.compact_multi(
+            [ukeys, rows], miss, miss_cap, fill=0)
+        mlive = mrow < m_count
+        mkeys = torch.where(mlive, mkeys, morton.INVALID_KEY)
+        n_nodes, mpaths, mreached, total_new, shallow = _descend_alloc(
+            pool.child, pool.n_nodes, mkeys, mlive, cap=cap, depth=depth,
+            shallow_level=shallow_level)
+        scat = torch.where(mlive, mpos, U)
+        # -1 = not reached folds (cur, reached) into one scatter
+        cur = compaction.scatter_set_(
+            torch.where(hit, hit_nodes, -1), scat,
+            torch.where(mreached[-1], mpaths[-1], -1))
+        leaf_reached = cur >= 0
+        cur = torch.clamp(cur, min=0)
+        # hits read their old value from the directory; only the misses
+        # touch the pool's values
+        old = compaction.scatter_set_(
+            torch.where(hit, hit_vals, packing.EMPTY_VALUE), scat,
+            pool.value[torch.clamp(mpaths[-1], 0, cap - 1)])
+        # deferred rows must not blend in this pass
+        ulive = keep
+        dir_hits = hit.sum(dtype=torch.int32)
+    else:
+        n_nodes, paths, reached, total_new, shallow = _descend_alloc(
+            pool.child, pool.n_nodes, ukeys, ulive, cap=cap, depth=depth,
+            shallow_level=shallow_level)
+        cur = paths[-1]
+        leaf_reached = reached[-1]
+        old = pool.value[cur]
+        hit_aux = torch.full((U,), -1, dtype=torch.int32, device=dev)
+        dir_hits = torch.full((), -1, dtype=torch.int32, device=dev)
 
     # leaf blend (uniques are already deduplicated)
-    leaf_ok = ulive & reached[-1]
+    leaf_ok = ulive & leaf_reached
     blended = packing.blend_value(old, mean_rgb)
     compaction.scatter_set_(pool.value, torch.where(leaf_ok, cur, cap),
                             blended)
@@ -334,7 +445,14 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
         mip_val = torch.zeros((1,), dtype=torch.int32, device=ukeys.device)
 
     unique_overflow = u_count > U
-    last_idx = torch.clamp(torch.clamp(u_count, max=U) - 1, 0, U - 1)
+    last_idx = torch.clamp(u_count, max=U) - 1
+    if use_cache:
+        # a miss overflow is reported as a unique overflow whose resume
+        # cursor is the last kept key (first_drop >= miss_cap >= 1, so the
+        # cursor always advances)
+        unique_overflow = unique_overflow | m_over
+        last_idx = torch.where(m_over, first_drop - 1, last_idx)
+    last_idx = torch.clamp(last_idx, 0, U - 1)
     pool_overflowed = pool.overflowed | (n_nodes + 8 > cap)
     stats = InsertStats(
         new_nodes=8 * total_new,
@@ -344,12 +462,16 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
         unique_overflow=unique_overflow,
         last_key=ukeys[last_idx.reshape(1)].reshape(()),
         shallow_allocs=shallow,
+        dir_hits=dir_hits,
+        hit_aux=hit_aux,
         new_leaf_keys=new_leaf_keys,
         new_leaf_nodes=new_leaf_nodes,
         new_leaf_count=torch.clamp(nl_count, max=U),
         touched_leaf_nodes=torch.where(leaf_ok, cur, -1),
         touched_leaf_keys=torch.where(leaf_ok, ukeys, morton.INVALID_KEY),
         touched_leaf_vals=blended,
+        sat_transition=(leaf_ok & (packing.alpha_of(old) < 255)
+                        & (packing.alpha_of(blended) == 255)),
         mip_idx=mip_idx,
         mip_val=mip_val,
     )

@@ -4,21 +4,38 @@ octree_slam_tpu/pipeline.py).
 `step` runs one frame as plain eager PyTorch on whatever device the state
 lives on: the depth pyramid (one bilateral launch + one gated-pyramid
 launch for both subsampled levels), 19 Gauss-Newton ICP iterations against
-the previous frame, the SVO insert with its unique-cap remainder pages, the
+the previous frame (or, with cfg.track_keyframe, against the keyframe
+anchor), the SVO insert with its unique-cap remainder pages, the
 leaf-registry append, and the render: "splat" (z-resolved leaf splat),
-"cone" (slab cone, render/conesplat.py), "cone_march" (the exact march of
-render/raycast.py) or "none". Map state is updated in place where the JAX
-step donates its buffers, so a state passed in must not be reused;
-`convert.clone_state` copies one that has to be.
+"cone" (slab cone, render/conesplat.py), "cone_hybrid" (the slab cone with
+its edge band re-rendered by a seeded exact march, render/hybrid.py),
+"cone_march" (the exact march of render/raycast.py) or "none". Map state
+is updated in place where the JAX step donates its buffers, so a state
+passed in must not be reused; `convert.clone_state` copies one that has to
+be.
 
-Splat, slab-cone and "none" frames are lazy when cfg.lazy_interior: the
-insert blends leaves only, and the interior values and the dense mirror
-(`accel`, a mips.RenderCache when cfg.use_dense_mips, else a raycast
-AccelGrid) fall behind, which the three staleness flags record exactly as
-the reference does. A "cone_march" frame, and every frame when
-lazy_interior is off, is eager: it first heals what lazy frames left
+Splat, slab-cone, hybrid and "none" frames are lazy when
+cfg.lazy_interior: the insert blends leaves only, and the interior values
+and the dense mirror (`accel`, a mips.RenderCache when cfg.use_dense_mips,
+else a raycast.AccelGrid) fall behind, which the three staleness flags
+record exactly as the reference does. A "cone_march" frame, and every frame
+when lazy_interior is off, is eager: it first heals what lazy frames left
 behind (svo.refresh_interior + mips.rebuild_from_pool), then re-mipmaps
-along the touched paths and updates the mirror with the insert.
+along the touched paths and updates the mirror with the insert. A lazy
+hybrid frame keeps the part of the mirror its band march reads: the leaf
+level (one scatter of the touched leaves' words), the occupancy (one
+scatter of the first-seen leaves), and, only when leaves were created or
+a flag says so, the distance field and the free cells' distance stamps
+(mips.encode_free_dist).
+
+Optional branches, all off by default: the keyframe anchor
+(cfg.track_keyframe), the saturation gate (cfg.saturation_gate: a bitmask
+of leaves at alpha 255 whose points are dropped before the insert's sort),
+the photometric term (cfg.w_rgbd > 0), the insert's directory cache
+(cfg.insert_dircache) and the host-driven pager
+(cfg.device_remainder=False: `step` returns unique_overflow and
+last_insert_key, and the caller finishes the frame with
+`insert_remainder`).
 
 The step's stages run under torch.profiler ranges ("step.pyramid",
 "step.track", "step.heal", "step.fuse", "step.render"), which cost nothing
@@ -26,19 +43,23 @@ measurable when no profiler is active.
 
 Host reads per frame. The reference's on-device `lax.while_loop` remainder
 pager is a Python loop that reads `unique_overflow` back once per page
-(one read when nothing overflows). Its `lax.cond` heal is a read of
-`interior_stale | mirror_stale`, once per eager frame under lazy_interior.
-The marches read their exit tests every raycast.EXIT_CHECK_EVERY trips.
-The splat, slab-cone and "none" frames keep one read per frame.
+(one read when nothing overflows; none with device_remainder=False). Its
+`lax.cond` heal is a read of the stale flags, once per eager frame under
+lazy_interior and once per lazy hybrid frame. A lazy hybrid frame's
+re-stamp trigger rides the pager's first read. The exact march reads its
+exit tests every raycast.EXIT_CHECK_EVERY trips; the hybrid's band march
+has a fixed trip count and reads nothing. So splat, slab-cone and "none"
+frames take one read, a lazy hybrid frame two.
 
-`check_supported` rejects what is left for later slices: keyframe
-tracking, the saturation gate, the insert directory cache, the photometric
-term (w_rgbd > 0), the host-driven pager (device_remainder=False) and the
-hybrid renderer ("cone_hybrid") with its leaf-level mirror upkeep.
+`check_supported` raises where the reference raises (the hybrid without
+the dense mirror) or would silently render black (an unknown render), and
+for the four band knobs of the hybrid that are not ported (see
+render/hybrid.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -46,15 +67,18 @@ from torch.profiler import record_function
 
 from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame, PyramidLevel
-from octree_slam_tpu_torch.map import mips, svo
+from octree_slam_tpu_torch.core import packing
+from octree_slam_tpu_torch.map import mips, morton, svo
 from octree_slam_tpu_torch.map.svo import SVONodePool
-from octree_slam_tpu_torch.render import conesplat, raycast
-from octree_slam_tpu_torch.render.splat import (LeafList, append_new_leaves,
+from octree_slam_tpu_torch.render import conesplat, hybrid, raycast
+from octree_slam_tpu_torch.render.splat import (LeafList,
+                                                append_new_leaves_cached,
                                                 create_leaf_list,
                                                 render_splat)
 from octree_slam_tpu_torch.sensor import tracking
+from octree_slam_tpu_torch.utils import compaction
 
-RENDER_MODES = ("splat", "none", "cone", "cone_march")
+RENDER_MODES = ("splat", "none", "cone", "cone_hybrid", "cone_march")
 
 
 class SLAMState(NamedTuple):
@@ -68,8 +92,35 @@ class SLAMState(NamedTuple):
     frame_idx: torch.Tensor    # i32[]
     diverged: torch.Tensor     # bool[] tracking lost at some frame
     interior_stale: torch.Tensor  # bool[] lazy frames deferred the mipmap
-    mirror_stale: torch.Tensor    # bool[] dense mirror behind the leaves
-    stamps_stale: torch.Tensor    # bool[] fused-dist stamps behind
+    # keyframe anchor (cfg.track_keyframe; empty when off)
+    key_pyramid: Tuple[PyramidLevel, ...]  # the anchor frame's maps
+    key_pose: torch.Tensor     # f32[4,4] world_T_key ((0,) when off)
+    key_T_cam: torch.Tensor    # f32[4,4] key_T_cam of the previous frame,
+                               # the Gauss-Newton seed ((0,) when off)
+    # insert directory cache (cfg.insert_dircache; (0,) when off): the last
+    # primary insert's leaf key -> (node, post-blend word, registry
+    # position). reset_dircache clears it whenever node indices, leaf
+    # values or registry positions change under the map.
+    dir_keys: torch.Tensor     # i32[U] morton keys, INVALID_KEY = dead row
+    dir_nodes: torch.Tensor    # i32[U] leaf node indices, -1 = dead row
+    dir_vals: torch.Tensor     # i32[U] the keys' current packed words
+    dir_pos: torch.Tensor      # i32[U] registry positions, -1 = unknown
+    # saturation-gate bitmask (cfg.saturation_gate; (0,) when off): bit
+    # (key & 31) of word (key >> 5) is set iff the leaf at that key has
+    # reached alpha 255, where a blend moves a channel only for a
+    # difference of 128 levels or more. Bits are set by an integer add on
+    # the once-in-a-lifetime transition (InsertStats.sat_transition), an
+    # exact OR; bit 31 is the int32 sign bit, so readers mask with & 1
+    # after the (arithmetic) shift. A pool rebuild that changes the key
+    # space or drops leaves must call rebuild_sat_mask.
+    sat_mask: torch.Tensor     # i32[2^(3*max_depth) / 32]
+    # True when a lazy frame since the last rebuild did not keep the
+    # mirror's leaf level and occupancy (splat / cone / none frames)
+    mirror_stale: torch.Tensor    # bool[]
+    # True when the mirror's free leaf cells lack current distance stamps
+    # although its content may be current (eager frames that are not
+    # hybrid update content and never stamp)
+    stamps_stale: torch.Tensor    # bool[]
 
 
 class StepOutput(NamedTuple):
@@ -86,23 +137,41 @@ class StepOutput(NamedTuple):
 
 
 def check_supported(cfg: SLAMConfig, render: str = "splat") -> None:
-    """Raise NotImplementedError for a configuration outside this slice."""
+    """Raise for a (cfg, render) pair `step` cannot run: ValueError for an
+    unknown render and for the hybrid without the dense mirror its band
+    march samples, NotImplementedError for the hybrid's four band knobs
+    that are not ported."""
+    if render not in RENDER_MODES:
+        raise ValueError(f"render={render!r} is none of {RENDER_MODES}")
+    if render != "cone_hybrid":
+        return
+    if not cfg.use_dense_mips:
+        raise ValueError("render='cone_hybrid' needs cfg.use_dense_mips "
+                         "(the band march samples the dense leaf mip)")
     unported = {
-        "track_keyframe": cfg.track_keyframe,
-        "saturation_gate": cfg.saturation_gate,
-        "insert_dircache": cfg.insert_dircache,
-        "w_rgbd > 0": cfg.w_rgbd > 0.0,
-        "device_remainder=False": not cfg.device_remainder,
-        f"render={render!r}": render not in RENDER_MODES,
+        "cone_band_sel_decimate": cfg.cone_band_sel_decimate,
+        "cone_band_crawl > 1": cfg.cone_band_crawl > 1,
+        "cone_band_depth_prio > 0": cfg.cone_band_depth_prio > 0.0,
+        "cone_band_compact_after < cone_band_iters":
+            cfg.cone_band_compact_after < cfg.cone_band_iters,
     }
     bad = [name for name, hit in unported.items() if hit]
     if bad:
         raise NotImplementedError(
-            f"not ported to octree_slam_tpu_torch yet: {', '.join(bad)}")
+            f"not ported to octree_slam_tpu_torch: {', '.join(bad)}")
 
 
 def _accel_level(cfg: SLAMConfig) -> int:
     return max(1, min(cfg.accel_level, cfg.max_depth - 2))
+
+
+def _miss_cap(cfg: SLAMConfig) -> int:
+    """Lanes of the directory cache's miss descent: cfg.insert_miss_cap,
+    or a quarter of the unique cap (camera motion between two frames
+    first-sees a few percent of a frame's leaves)."""
+    if cfg.insert_miss_cap > 0:
+        return min(cfg.insert_miss_cap, cfg.insert_unique_cap)
+    return min(max(1024, cfg.insert_unique_cap // 4), cfg.insert_unique_cap)
 
 
 def _fuse_colors(frame: Frame, cfg: SLAMConfig) -> torch.Tensor:
@@ -134,7 +203,6 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
     """Empty map and identity (or `initial_pose`) camera on `device`. The
     root cell spans voxel_resolution * 2^(max_depth-1) around map_center,
     so leaves are exactly voxel_resolution."""
-    check_supported(cfg)
     half_size = cfg.voxel_resolution * (2 ** (cfg.max_depth - 1))
     pool = svo.create(cfg.node_capacity, map_center, half_size, device=device)
     lvl = _accel_level(cfg)
@@ -143,6 +211,9 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
             else torch.as_tensor(initial_pose, dtype=torch.float32)
             .to(device).clone())
     false = torch.tensor(False, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    empty_f = torch.zeros((0,), dtype=torch.float32, device=device)
+    U = cfg.insert_unique_cap if cfg.insert_dircache else 0
     return SLAMState(
         pool=pool,
         leaves=create_leaf_list(cfg.leaf_capacity, cfg.node_capacity,
@@ -156,9 +227,70 @@ def init_state(cfg: SLAMConfig, map_center=(0.0, 0.0, 0.0),
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
         diverged=false,
         interior_stale=false,
+        key_pyramid=(_empty_pyramid(cfg, device) if cfg.track_keyframe
+                     else ()),
+        key_pose=pose.clone() if cfg.track_keyframe else empty_f,
+        key_T_cam=(torch.eye(4, dtype=torch.float32, device=device)
+                   if cfg.track_keyframe else empty_f),
+        dir_keys=torch.full((U,), morton.INVALID_KEY, **i32),
+        dir_nodes=torch.full((U,), -1, **i32),
+        dir_vals=torch.zeros((U,), **i32),
+        dir_pos=torch.full((U,), -1, **i32),
+        sat_mask=torch.zeros(
+            ((1 << (3 * cfg.max_depth)) // 32 if cfg.saturation_gate else 0,),
+            **i32),
         mirror_stale=false,
         stamps_stale=false,
     )
+
+
+def _add_sat_bits(mask: torch.Tensor, keys: torch.Tensor,
+                  on: torch.Tensor) -> torch.Tensor:
+    """Set the bit of every key whose `on` is true, in place. Each such
+    key sets its bit once in its life, so the integer add is an exact OR
+    even where several rows share a word (1 << 31 wraps to the sign bit,
+    as it must)."""
+    k = torch.where(on, keys, 0)
+    bits = torch.where(on, torch.bitwise_left_shift(torch.ones_like(k),
+                                                    k & 31), 0)
+    return mask.index_add_(0, (k >> 5).to(torch.int64), bits)
+
+
+def _saturated(mask: torch.Tensor, world_pts: torch.Tensor, pool,
+               cfg: SLAMConfig) -> torch.Tensor:
+    """bool[N]: the point's leaf has its bit set in the saturation mask."""
+    keys, valid = morton.encode(world_pts, pool.center, pool.half_size,
+                                cfg.max_depth)
+    word = mask[torch.where(valid, keys >> 5, 0).to(torch.int64)]
+    return valid & (((word >> (keys & 31)) & 1) == 1)
+
+
+def rebuild_sat_mask(state: SLAMState, cfg: SLAMConfig) -> SLAMState:
+    """The saturation mask anew from the live leaf registry (leaves at
+    alpha 255 only): required after any operation that changes the key
+    space or removes leaves from the pool, since a stale bit of a live
+    unsaturated key would drop its observations. Registry keys are unique,
+    so one add of each key's bit is an exact OR."""
+    if state.sat_mask.shape[0] == 0:
+        return state
+    lv = state.leaves
+    sat = (lv.keys >= 0) & (packing.alpha_of(lv.vals) == 255)
+    return state._replace(sat_mask=_add_sat_bits(
+        torch.zeros_like(state.sat_mask), lv.keys, sat))
+
+
+def reset_dircache(state: SLAMState) -> SLAMState:
+    """Clear the insert directory cache: required after any operation that
+    changes leaf keys, node indices or registry positions under the map. A
+    stale entry would blend a leaf into the wrong node; a cleared cache
+    costs one frame of full descents."""
+    if state.dir_keys.shape[0] == 0:
+        return state
+    return state._replace(
+        dir_keys=torch.full_like(state.dir_keys, morton.INVALID_KEY),
+        dir_nodes=torch.full_like(state.dir_nodes, -1),
+        dir_vals=torch.zeros_like(state.dir_vals),
+        dir_pos=torch.full_like(state.dir_pos, -1))
 
 
 def heal_for_march(state: SLAMState, cfg: SLAMConfig):
@@ -177,26 +309,103 @@ def heal_for_march(state: SLAMState, cfg: SLAMConfig):
 
 def _fuse_once(pool, leaves, accel, world_pts, colors, valid,
                cfg: SLAMConfig, *, eager: bool, with_dist: bool,
-               min_key=None):
-    """One insert pass, the registry append and the dense mirror's upkeep:
-    the one definition behind the step's first insert and its remainder
-    pages. Without dense mips the AccelGrid is not kept up here: only the
-    exact march reads it, and the step's cone_march branch rebuilds it."""
+               min_key=None, dircache=None, leaf_mirror: bool = False,
+               sat_mask=None):
+    """One insert pass, the registry append and the upkeep of the dense
+    mirror and the saturation mask: the one definition behind the step's
+    first insert, its remainder pages and insert_remainder. Without dense
+    mips the AccelGrid is not kept up here: only the exact march reads it,
+    and the step's cone_march branch rebuilds it.
+    Returns (pool, leaves, accel, sat_mask, stats, tpos); tpos, every
+    touched row's registry position, is the next frame's dir_pos."""
     lvl = _accel_level(cfg)
     mirror = cfg.use_dense_mips and eager
+    dk, dn, dv, dp = dircache if dircache is not None else (None,) * 4
     pool, st = svo.insert(pool, world_pts, colors, valid=valid,
                           depth=cfg.max_depth,
                           unique_cap=cfg.insert_unique_cap,
                           shallow_level=lvl, min_key=min_key,
-                          update_interior=eager, emit_mips=mirror)
-    leaves = append_new_leaves(leaves, st)
+                          update_interior=eager, emit_mips=mirror,
+                          dir_keys=dk, dir_nodes=dn, dir_vals=dv, dir_aux=dp,
+                          miss_cap=(_miss_cap(cfg) if dircache is not None
+                                    else 0))
+    leaves, tpos = append_new_leaves_cached(leaves, st)
     if mirror:
         # mirror this insert's touched values and occupancy; the distance
-        # field only when the exact march reads it this frame
+        # field only when a march reads it this frame
         accel = mips.update(accel, st.mip_idx, st.mip_val,
                             max_depth=cfg.max_depth, dist_level=lvl,
                             max_skip=cfg.dist_max_skip, with_dist=with_dist)
-    return pool, leaves, accel, st
+    elif leaf_mirror and cfg.use_dense_mips:
+        # The hybrid's lazy upkeep: its band march samples only the leaf
+        # level and the dist field's occupancy, so one scatter of the
+        # touched leaves' words and one of the first-seen leaves' dist
+        # cells (nothing else newly occupies a cell) keep it current
+        # without the interior mipmap. The distance transform is the
+        # step's, once a frame; interior levels stay stale.
+        tkeys = st.touched_leaf_keys
+        compaction.scatter_set_(
+            accel.values,
+            torch.where(tkeys != morton.INVALID_KEY,
+                        mips.flat_index(tkeys, cfg.max_depth, cfg.max_depth),
+                        -1),
+            st.touched_leaf_vals)
+        nk = st.new_leaf_keys
+        x, y, z = mips.deinterleave3(
+            torch.where(nk >= 0, nk >> (3 * (cfg.max_depth - lvl)), 0), lvl)
+        compaction.scatter_set_(
+            accel.occ,
+            torch.where(nk >= 0, (z << (2 * lvl)) | (y << lvl) | x, -1),
+            torch.ones_like(nk, dtype=torch.bool))
+    if sat_mask is not None and sat_mask.shape[0] > 0:
+        sat_mask = _add_sat_bits(sat_mask, st.touched_leaf_keys,
+                                 st.sat_transition)
+    return pool, leaves, accel, sat_mask, st, tpos
+
+
+def _slab_spec(cfg: SLAMConfig) -> conesplat.SlabSpec:
+    return conesplat.make_slab_spec(
+        width=cfg.width, height=cfg.height, fx=cfg.focal_x,
+        leaf_size=cfg.voxel_resolution, z_near=cfg.cone_znear,
+        z_far=cfg.max_range, n_slabs=cfg.cone_slabs,
+        max_scale=cfg.cone_max_scale)
+
+
+def _track(state: SLAMState, pyramid, cfg: SLAMConfig):
+    """The frame's pose: ICP against the previous frame, or with
+    cfg.track_keyframe against the anchor frame's maps (drift then accrues
+    per keyframe, not per frame), seeded by the previous frame's transform
+    against the anchor. The anchor moves to this frame once the camera is
+    keyframe_max_dist or keyframe_max_angle_deg away from it, never on a
+    diverged solve, and by torch.where on a 0-d flag: no host read.
+    Returns (pose, tstats, diverged, key_pyramid, key_pose, key_T_cam)."""
+    eye = torch.eye(4, dtype=torch.float32, device=state.pose.device)
+    if not cfg.track_keyframe:
+        update_T, tstats = tracking.track(list(state.last_pyramid), pyramid,
+                                          cfg)
+        update_T = torch.where(state.initialized, update_T, eye)
+        diverged = state.diverged | (state.initialized & tstats.diverged)
+        return (state.pose @ update_T, tstats, diverged, state.key_pyramid,
+                state.key_pose, state.key_T_cam)
+    update_T, tstats = tracking.track(list(state.key_pyramid), pyramid, cfg,
+                                      init_T=state.key_T_cam)
+    update_T = torch.where(state.initialized, update_T, eye)
+    pose = torch.where(state.initialized, state.key_pose @ update_T,
+                       state.pose)
+    diverged = state.diverged | (state.initialized & tstats.diverged)
+    t_dist = torch.linalg.norm(update_T[:3, 3])
+    cos_ang = torch.clamp((torch.trace(update_T[:3, :3]) - 1.0) * 0.5,
+                          -1.0, 1.0)
+    far = (t_dist > cfg.keyframe_max_dist) | (
+        cos_ang < math.cos(math.radians(cfg.keyframe_max_angle_deg)))
+    re_anchor = ~state.initialized | (far & ~tstats.diverged)
+    key_pyramid = tuple(
+        PyramidLevel(*(torch.where(re_anchor, new, old)
+                       for new, old in zip(lvl_new, lvl_old)))
+        for lvl_new, lvl_old in zip(pyramid, state.key_pyramid))
+    return (pose, tstats, diverged, key_pyramid,
+            torch.where(re_anchor, pose, state.key_pose),
+            torch.where(re_anchor, eye, update_T))
 
 
 def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
@@ -207,15 +416,9 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
     dev = state.pose.device
     with record_function("step.pyramid"):
         pyramid = tracking.build_pyramid(frame.depth, frame.color, cfg)
-
-    # track against the previous FRAME (rgbd_camera.cpp semantics)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
     with record_function("step.track"):
-        update_T, tstats = tracking.track(list(state.last_pyramid), pyramid,
-                                          cfg)
-    update_T = torch.where(state.initialized, update_T, eye)
-    pose = state.pose @ update_T
-    diverged = state.diverged | (state.initialized & tstats.diverged)
+        pose, tstats, diverged, key_pyramid, key_pose, key_T_cam = _track(
+            state, pyramid, cfg)
 
     # fuse: fuse-level camera points -> world -> SVO insert. Lost
     # tracking gates fusion (rgbd_camera.cpp:148-151): the sticky flag when
@@ -229,33 +432,71 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
     # An eager frame (the exact march, or lazy_interior off) updates the
     # mirror incrementally, so it first heals what earlier lazy frames left
     # behind: the interior values, or a mirror that other renders skipped.
+    # A lazy hybrid frame keeps the mirror's leaf level itself, but only on
+    # top of a current mirror: it heals after splat / cone / none frames.
     eager = (not cfg.lazy_interior) or render == "cone_march"
+    needs_mirror = render == "cone_hybrid" and not eager
     lvl = _accel_level(cfg)
     pool, accel = state.pool, state.accel
-    if eager and cfg.lazy_interior:
-        with record_function("step.heal"):
-            if (state.interior_stale | state.mirror_stale).item():
-                pool = svo.refresh_interior(pool, depth=cfg.max_depth)
-                if cfg.use_dense_mips:
-                    accel = mips.rebuild_from_pool(
-                        pool, max_depth=cfg.max_depth, dist_level=lvl,
-                        max_skip=cfg.dist_max_skip)
+    restamp = False
+    with record_function("step.heal"):
+        if eager and cfg.lazy_interior:
+            heal = (state.interior_stale | state.mirror_stale).item()
+        elif needs_mirror:
+            # one read for the heal and for the stamps' share of the
+            # re-stamp trigger below
+            heal, stamps_stale = torch.stack(
+                [state.mirror_stale, state.stamps_stale]).tolist()
+            restamp = cfg.cone_band_fused_dist and (heal or stamps_stale)
+        else:
+            heal = False
+        if heal:
+            pool = svo.refresh_interior(pool, depth=cfg.max_depth)
+            if cfg.use_dense_mips:
+                accel = mips.rebuild_from_pool(
+                    pool, max_depth=cfg.max_depth, dist_level=lvl,
+                    max_skip=cfg.dist_max_skip)
 
     with record_function("step.fuse"):
-        pool, leaves, accel, istats = _fuse_once(
+        if cfg.saturation_gate:
+            # points of a saturated leaf are dropped before the sort, so
+            # that the frame's new uniques, not its whole re-observation
+            # load, size the per-unique work
+            fuse_ok = fuse_ok & ~_saturated(state.sat_mask, world_pts, pool,
+                                            cfg)
+        # The directory serves the primary insert of lazy frames only (the
+        # eager mipmap needs the per-level paths, and the pages' key ranges
+        # barely meet it); tpos is kept whenever the cache exists, eager
+        # frames included, so that the next lazy frame starts warm.
+        have_dir = state.dir_keys.shape[0] > 0
+        dircache = ((state.dir_keys, state.dir_nodes, state.dir_vals,
+                     state.dir_pos) if have_dir and not eager else None)
+        march_reads_dist = render in ("cone_march", "cone_hybrid")
+        pool, leaves, accel, sat_mask, istats, tpos = _fuse_once(
             pool, state.leaves, accel, world_pts, colors, fuse_ok, cfg,
-            eager=eager, with_dist=(render == "cone_march"))
-        # unique-cap remainder pages, in sorted key order: each leaf still
-        # blends once. One host read per page.
+            eager=eager, with_dist=march_reads_dist, dircache=dircache,
+            leaf_mirror=needs_mirror, sat_mask=state.sat_mask)
         uo, lk = istats.unique_overflow, istats.last_key
+        if needs_mirror:
+            # the pager's first read also says whether leaves were created
+            more, had_new = torch.stack(
+                [uo, (istats.new_leaf_count > 0) | uo]).tolist()
+        else:
+            had_new = False
+            more = cfg.device_remainder and uo.item()
+        # unique-cap remainder pages, in sorted key order: each leaf still
+        # blends once. One host read per page. With device_remainder off
+        # the caller pages through insert_remainder.
         paged = False
-        while uo.item():
-            pool, leaves, accel, st = _fuse_once(
+        while cfg.device_remainder and more:
+            pool, leaves, accel, sat_mask, st, _ = _fuse_once(
                 pool, leaves, accel, world_pts, colors, fuse_ok, cfg,
-                eager=eager, with_dist=False, min_key=lk)
+                eager=eager, with_dist=False, min_key=lk,
+                leaf_mirror=needs_mirror, sat_mask=sat_mask)
             uo, lk = st.unique_overflow, st.last_key
+            more = uo.item()
             paged = True
-        if paged and cfg.use_dense_mips and render == "cone_march":
+        if paged and cfg.use_dense_mips and eager and march_reads_dist:
             # the pages updated the occupancy without the distance field:
             # redo it, or this frame's march would skip through the
             # geometry they inserted
@@ -264,14 +505,33 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
 
     with record_function("step.render"):
         if render == "cone":
-            spec = conesplat.make_slab_spec(
-                width=cfg.width, height=cfg.height, fx=cfg.focal_x,
-                leaf_size=cfg.voxel_resolution, z_near=cfg.cone_znear,
-                z_far=cfg.max_range, n_slabs=cfg.cone_slabs,
-                max_scale=cfg.cone_max_scale)
             fb = conesplat.render_cone_splat(
                 leaves, pool.center, pool.half_size, pose, cfg.focal_x,
-                cfg.focal_y, spec=spec, depth=cfg.max_depth)
+                cfg.focal_y, spec=_slab_spec(cfg), depth=cfg.max_depth)
+        elif render == "cone_hybrid":
+            if needs_mirror and (had_new or restamp):
+                # the distance transform runs only when this frame created
+                # leaves; the stamps go stale exactly when `dist` does, and
+                # also after a heal (a rebuilt mirror has none) or after
+                # frames that do not stamp, so they ride the same trigger
+                accel = mips.refresh_dist(accel, dist_level=lvl,
+                                          max_skip=cfg.dist_max_skip)
+            if cfg.cone_band_fused_dist and (
+                    not needs_mirror or had_new or restamp):
+                # an eager hybrid frame recomputed `dist` in mips.update,
+                # so it stamps on every frame
+                accel = mips.encode_free_dist(accel, max_depth=cfg.max_depth,
+                                              dist_level=lvl)
+            fb = hybrid.render_cone_hybrid(
+                leaves, accel, pool.center, pool.half_size, pose,
+                cfg.focal_x, cfg.focal_y, spec=_slab_spec(cfg),
+                depth=cfg.max_depth, dist_level=lvl, max_range=cfg.max_range,
+                start_dist=cfg.start_dist, band_cap=cfg.cone_band_cap,
+                band_iters=cfg.cone_band_iters, crawl=cfg.cone_band_crawl,
+                fused_dist=cfg.cone_band_fused_dist,
+                depth_prio=cfg.cone_band_depth_prio,
+                compact_after=cfg.cone_band_compact_after,
+                sel_decimate=cfg.cone_band_sel_decimate)
         elif render == "cone_march" and cfg.use_dense_mips:
             s = max(1, cfg.cone_scale)
             if cfg.width % s or cfg.height % s:
@@ -301,26 +561,37 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
         else:
             fb = torch.zeros((cfg.height, cfg.width, 4), device=dev)
 
-    # flags made on the device: torch.tensor(True, device=...) would be a
-    # synchronising host-to-device copy
-    true = torch.ones((), dtype=torch.bool, device=dev)
     new_state = SLAMState(
         pool=pool,
         leaves=leaves,
         accel=accel,
         pose=pose,
         last_pyramid=tuple(pyramid),
-        initialized=true,
+        initialized=_flag(True, dev),
         frame_idx=state.frame_idx + 1,
         diverged=diverged,
-        # an eager frame healed and updated interiors and mirror; a lazy
-        # one leaves both behind. None of these renders stamps the
-        # mirror's free cells (the hybrid's, a later slice).
-        interior_stale=~true if eager else true,
-        mirror_stale=((~true if eager else true) if cfg.use_dense_mips
-                      else state.mirror_stale),
-        stamps_stale=(true if cfg.use_dense_mips and cfg.cone_band_fused_dist
-                      else ~true),
+        interior_stale=_flag(not eager, dev),
+        key_pyramid=key_pyramid,
+        key_pose=key_pose,
+        key_T_cam=key_T_cam,
+        # the next frame's directory: every leaf this primary insert
+        # blended, hits and misses alike (a gated frame blends nothing and
+        # so empties the cache)
+        dir_keys=istats.touched_leaf_keys if have_dir else state.dir_keys,
+        dir_nodes=istats.touched_leaf_nodes if have_dir else state.dir_nodes,
+        dir_vals=istats.touched_leaf_vals if have_dir else state.dir_vals,
+        dir_pos=tpos if have_dir else state.dir_pos,
+        sat_mask=sat_mask,
+        # An eager frame healed and updated the mirror, a lazy hybrid frame
+        # healed it and kept its leaf level, every other lazy frame leaves
+        # it behind. That is content only: an eager frame that is not
+        # hybrid leaves a current mirror without stamps, which the second
+        # flag records, so that the next hybrid frame stamps it without the
+        # eager path healing a current mirror on every frame.
+        mirror_stale=(_flag(not (eager or needs_mirror), dev)
+                      if cfg.use_dense_mips else state.mirror_stale),
+        stamps_stale=_flag(cfg.use_dense_mips and cfg.cone_band_fused_dist
+                           and render != "cone_hybrid", dev),
     )
     out = StepOutput(
         framebuffer=fb,
@@ -335,3 +606,49 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
         last_insert_key=lk,
     )
     return new_state, out
+
+
+def _flag(value: bool, device) -> torch.Tensor:
+    """A 0-d bool made on the device: torch.tensor(value, device=...) would
+    be a synchronising host-to-device copy."""
+    return torch.full((), bool(value), dtype=torch.bool, device=device)
+
+
+def insert_remainder(state: SLAMState, frame: Frame, cfg: SLAMConfig,
+                     min_key: torch.Tensor):
+    """Fuse the unique-cap remainder of the frame `step` has just consumed
+    (cfg.device_remainder=False): its fused vertex map is
+    state.last_pyramid[fuse_level] and its pose state.pose. Uniques are
+    processed in sorted key order, so masking to keys > min_key goes on
+    exactly where the step's insert stopped, and each leaf blends once in
+    all. Returns (state, (unique_overflow, last_key)) to drive the
+    caller's loop:
+
+        state, out = step(state, frame, cfg)
+        uo, lk = out.unique_overflow, out.last_insert_key
+        while bool(uo):
+            state, (uo, lk) = insert_remainder(state, frame, cfg, lk)
+    """
+    v = state.last_pyramid[cfg.fuse_level].vertex.reshape(-1, 3)
+    world_pts = v @ state.pose[:3, :3].T + state.pose[:3, 3]
+    # the same pre-gate as the step's: keys > min_key were not touched by
+    # the earlier passes, so their bits are unchanged and the probe exact
+    valid = (~_saturated(state.sat_mask, world_pts, state.pool, cfg)
+             if cfg.saturation_gate else None)
+    eager = not cfg.lazy_interior
+    pool, leaves, accel, sat_mask, istats, _ = _fuse_once(
+        state.pool, state.leaves, state.accel, world_pts,
+        _fuse_colors(frame, cfg), valid, cfg, eager=eager, min_key=min_key,
+        with_dist=False, sat_mask=state.sat_mask)
+    dev = state.pose.device
+    new_state = state._replace(
+        pool=pool, leaves=leaves, accel=accel, sat_mask=sat_mask,
+        # a lazy remainder skips the interior mipmap and the mirror: the
+        # flags must say so even if the step that consumed the frame was
+        # eager and had cleared them
+        interior_stale=state.interior_stale | _flag(not eager, dev),
+        mirror_stale=state.mirror_stale
+        | _flag(cfg.use_dense_mips and not eager, dev),
+        stamps_stale=state.stamps_stale
+        | _flag(cfg.use_dense_mips and cfg.cone_band_fused_dist, dev))
+    return new_state, (istats.unique_overflow, istats.last_key)

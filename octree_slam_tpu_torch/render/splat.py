@@ -9,9 +9,9 @@ quantized-depth<<16 | RGB565 into one int32 per leaf and resolves
 visibility and colour together with one scatter-min, then fills 1-2 pixel
 holes with a 3x3 min dilation.
 
-Left for later: the directory-cache append (`append_new_leaves_cached`)
-and the registry rebuild from an extraction. The registry's tensors are
-updated in place by `append_new_leaves`.
+Left for later: the registry rebuild from an extraction. The registry's
+tensors are updated in place by `append_new_leaves` and
+`append_new_leaves_cached`.
 """
 
 from __future__ import annotations
@@ -58,6 +58,19 @@ def create_leaf_list(capacity: int, node_capacity: int,
 def append_new_leaves(leaves: LeafList, stats: InsertStats) -> LeafList:
     """Append this insert's first-seen leaves at the cursor and refresh the
     value mirror of every leaf it touched."""
+    return append_new_leaves_cached(leaves, stats)[0]
+
+
+def append_new_leaves_cached(leaves: LeafList, stats: InsertStats):
+    """append_new_leaves with the directory cache's contract: a row whose
+    registry position is known already (stats.hit_aux, carried through
+    svo.insert's dir_aux) keeps it, every other touched row reads
+    node2pos. Returns (leaves, tpos): tpos i32[U] is every touched row's
+    registry position, -1 where the row was not touched or was dropped,
+    which the pipeline keeps as the next frame's dir_pos. The reference
+    gathers node2pos on static miss lanes and falls back to a full-width
+    gather when they overflow; both give this tpos while the directory is
+    current, and here the one gather serves both."""
     lc = leaves.keys.shape[0]
     nc = leaves.node2pos.shape[0]
     u = stats.new_leaf_keys.shape[0]
@@ -71,14 +84,16 @@ def append_new_leaves(leaves: LeafList, stats: InsertStats) -> LeafList:
                  pos)
 
     tn = stats.touched_leaf_nodes
-    tpos = leaves.node2pos[torch.clamp(tn, 0, nc - 1)]
+    tpos = torch.where(stats.hit_aux >= 0, stats.hit_aux,
+                       leaves.node2pos[torch.clamp(tn, 0, nc - 1)])
     t_ok = (tn >= 0) & (tn < nc) & (tpos >= 0)
     scatter_set_(leaves.vals, torch.where(t_ok, tpos, lc),
                  stats.touched_leaf_vals)
 
     total = leaves.count + stats.new_leaf_count
     return leaves._replace(count=torch.clamp(total, max=lc),
-                           overflowed=leaves.overflowed | (total > lc))
+                           overflowed=leaves.overflowed | (total > lc)), \
+        torch.where(t_ok, tpos, -1)
 
 
 def splat_zbuffer(vals: torch.Tensor, keys: torch.Tensor, live: torch.Tensor,

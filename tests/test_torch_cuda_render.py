@@ -1,4 +1,5 @@
-"""The cone renderers on the card against the port itself on the CPU.
+"""The cone renderers (the hybrid among them) and the step's optional
+features on the card against the port itself on the CPU.
 Marked `cuda`: without a CUDA device every test skips. The repository's
 conftest imports jax, which the card's machine lacks, so run these there
 with
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from octree_slam_tpu_torch import SLAMConfig, convert, pipeline
+from octree_slam_tpu_torch.map import mips
 from octree_slam_tpu_torch.render import raycast
 from octree_slam_tpu_torch.sensor import sources
 
@@ -59,6 +61,16 @@ def _run(cfg, frames, gts, renders, dev):
     ({}, ["splat", "cone_march", "cone_march"]),
     ({"use_dense_mips": False}, ["cone", "splat", "cone_march"]),
     ({"lazy_interior": False}, ["none", "splat", "cone_march"]),
+    # the hybrid: fresh, after a heal, after a re-stamp; eager; unfused
+    ({}, ["cone_hybrid", "splat", "cone_hybrid"]),
+    ({}, ["cone_march", "cone_hybrid", "cone_hybrid"]),
+    ({"lazy_interior": False}, ["cone_hybrid", "cone_hybrid"]),
+    ({"cone_band_fused_dist": False, "insert_unique_cap": 1 << 12},
+     ["cone_hybrid", "cone_hybrid"]),
+    # every optional branch of the step at once
+    ({"track_keyframe": True, "keyframe_max_dist": 0.04,
+      "saturation_gate": True, "insert_dircache": True, "w_rgbd": 0.1},
+     ["splat", "cone_hybrid", "splat", "cone_hybrid"]),
 ])
 def test_render_card_matches_cpu(device, change, renders):
     cfg = dataclasses.replace(CFG, **change)
@@ -81,6 +93,44 @@ def test_render_card_matches_cpu(device, change, renders):
         for name in ("values", "occ", "dist"):
             a, b = getattr(gs.accel, name).cpu(), getattr(cs.accel, name)
             assert float((a != b).float().mean()) <= 0.01, name
+    if renders[-1] == "cone_hybrid":
+        # a hybrid frame keeps the mirror's leaf level, occ and dist
+        lo = mips.level_offset(cfg.max_depth)
+        for a, b in ((gs.accel.values[lo:], cs.accel.values[lo:]),
+                     (gs.accel.occ, cs.accel.occ),
+                     (gs.accel.dist, cs.accel.dist)):
+            assert float((a.cpu() != b).float().mean()) <= 0.01
+    for name in ("sat_mask", "dir_keys", "dir_nodes", "dir_pos"):
+        a, b = getattr(gs, name).cpu(), getattr(cs, name)
+        assert a.shape == b.shape, name
+        if a.numel():
+            assert float((a != b).float().mean()) <= 0.01, name
+    if cfg.track_keyframe:
+        assert float((gs.key_pose.cpu() - cs.key_pose).abs().max()) < 1e-4
+        assert not torch.equal(cs.key_pose, gts[0])     # re-anchored
+
+
+def test_insert_remainder_on_the_card(device):
+    """The caller's pager on the card leaves the map the step's own pager
+    leaves."""
+    paged = dataclasses.replace(CFG, insert_unique_cap=1 << 11)
+    host = dataclasses.replace(paged, device_remainder=False)
+    frames, gts = _stream(CFG, 2)
+    want, _ = _run(paged, frames, gts, ["splat", "splat"], device)
+    state = pipeline.init_state(host, initial_pose=gts[0], device=device)
+    pages = 0
+    for f in frames:
+        f = type(f)(*(x.to(device) for x in f))
+        state, out = pipeline.step(state, f, host)
+        uo, lk = out.unique_overflow, out.last_insert_key
+        while bool(uo):
+            state, (uo, lk) = pipeline.insert_remainder(state, f, host, lk)
+            pages += 1
+    assert pages >= 2
+    assert torch.equal(state.pool.child, want.pool.child)
+    assert torch.equal(state.pool.value, want.pool.value)
+    assert torch.equal(state.leaves.keys, want.leaves.keys)
+    assert torch.equal(state.leaves.vals, want.leaves.vals)
 
 
 def test_exit_check_period_bit_identical_on_the_card(device):

@@ -1,9 +1,10 @@
-"""Port parity for the whole slice: pipeline.step with render "splat",
-"cone" and "cone_march" against the JAX package, from one carried-over
-state and over whole streams that mix the renders (the heal path), the
-port's own ATE, the synthetic sources, state conversion and cloning, that
-the port runs without jax and without the JAX package, and that its entry
-points default to the card.
+"""Port parity for the whole slice: pipeline.step with every render
+("splat", "cone", "cone_march", "cone_hybrid") and every optional feature
+against the JAX package, from one carried-over state and over whole streams
+that mix the renders (the heal path), the port's own ATE, the synthetic
+sources, state conversion and cloning, what check_supported still refuses,
+that the port runs without jax and without the JAX package, and that its
+entry points default to the card.
 
 Tolerances (world points go through a 3x3 product that rounds differently
 in the two libraries, so keys at cell boundaries may flip): poses within
@@ -13,7 +14,11 @@ init_state in both packages share their first frame's pose exactly and
 stay closer: nodes, leaves and the three staleness flags equal after every
 frame, at least 99% of framebuffer pixels within 1e-4, and the dense
 mirror (values, occ, dist) equal word for word after every eager frame
-unless a leaf count differs."""
+unless a leaf count differs. The feature streams also hold the saturation
+mask and the directory cache bit for bit and the mirror's leaf level after
+hybrid and march frames; the two keyframe streams, whose anchored solve
+ends a few 1e-7 from the reference's, compare counts within 1% and no
+integer structure."""
 
 import dataclasses
 import os
@@ -27,8 +32,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (DEVICE, assert_mirror_equal, close_share,
-                          orbit_frames, port_config, to_t)
+from torch_parity import (DEVICE, assert_leaf_level_equal,
+                          assert_mirror_equal, assert_step_parity,
+                          close_share, jax_frame, orbit_frames, port_config,
+                          step_both, to_t)
 
 from octree_slam_tpu import pipeline as jpipeline
 from octree_slam_tpu.config import SLAMConfig
@@ -131,7 +138,10 @@ def test_unique_cap_pages_in_step(stream):
                                   np.asarray(jstate.pool.child))
 
 
-@pytest.mark.parametrize("change,render", [
+# The step features and the hybrid render, each as a short stream against
+# the JAX package (one compile of the JAX step per case). The first nine are
+# the configurations the port used to reject.
+FEATURE_CASES = [
     ({"track_keyframe": True}, "splat"),
     ({"saturation_gate": True}, "splat"),
     ({"insert_dircache": True}, "splat"),
@@ -141,14 +151,79 @@ def test_unique_cap_pages_in_step(stream):
     ({"insert_dircache": True}, "cone"),
     ({}, "cone_hybrid"),
     ({"saturation_gate": True}, "cone_march"),
+]
+
+
+@pytest.mark.parametrize("change,render", FEATURE_CASES)
+def test_step_features_run_against_reference(stream, change, render):
+    cfg = dataclasses.replace(CFG, **change)
+    tcfg = port_config(cfg)
+    pipeline.check_supported(tcfg, render)
+    gt = stream[2]
+    jstate = jpipeline.init_state(cfg, initial_pose=jnp.asarray(gt[0]))
+    tstate = pipeline.init_state(tcfg, initial_pose=to_t(gt[0]),
+                                 device=DEVICE)
+    for name in ("dir_keys", "dir_pos", "sat_mask", "key_pose", "key_T_cam"):
+        assert getattr(tstate, name).shape == getattr(jstate, name).shape
+    for i in range(3):
+        jstate, jo, tstate, to = step_both(jstate, tstate, cfg, tcfg, stream,
+                                           i, render)
+        # the anchored solve ends a few 1e-7 from the reference's, which
+        # moves a leaf or two across a cell boundary
+        assert_step_parity(tstate, to, jstate, jo,
+                           f"{change} {render} frame {i}",
+                           exact=not cfg.track_keyframe)
+        # the caller's pager, where the step leaves the pages to it
+        uo, lk, pages = to.unique_overflow, to.last_insert_key, 0
+        assert not (cfg.device_remainder and bool(uo))
+        assert cfg.device_remainder or i > 0 or bool(uo)
+        while bool(uo):
+            jstate, (juo, jlk) = jpipeline.insert_remainder(
+                jstate, jax_frame(*stream[:2], i), cfg, jo.last_insert_key
+                if pages == 0 else jlk)
+            tstate, (uo, lk) = pipeline.insert_remainder(
+                tstate, convert.frame_from_numpy(*(a[i] for a in stream[:2]),
+                                                 device=DEVICE), tcfg, lk)
+            pages += 1
+            assert (bool(uo), int(lk)) == (bool(juo), int(jlk))
+            assert int(tstate.leaves.count) == int(jstate.leaves.count)
+            np.testing.assert_array_equal(tstate.pool.child.numpy(),
+                                          np.asarray(jstate.pool.child))
+        assert not bool(to.diverged)
+        if render in ("cone_hybrid", "cone_march"):
+            assert_leaf_level_equal(tstate.accel, jstate.accel,
+                                    cfg.max_depth, f"frame {i}")
+    assert int(to.map_leaves) > 500
+    assert float((to.framebuffer[..., :3].sum(-1) > 0).float().mean()) > 0.3
+    if cfg.insert_dircache:
+        assert int((tstate.dir_pos >= 0).sum()) > 500
+    if cfg.track_keyframe:
+        assert not torch.equal(tstate.key_T_cam, torch.eye(4))
+
+
+@pytest.mark.parametrize("change,render,error", [
+    ({}, "cone_trace", ValueError),
+    ({"use_dense_mips": False}, "cone_hybrid", ValueError),
+    ({"cone_band_sel_decimate": True}, "cone_hybrid", NotImplementedError),
+    ({"cone_band_crawl": 2}, "cone_hybrid", NotImplementedError),
+    ({"cone_band_depth_prio": 0.5}, "cone_hybrid", NotImplementedError),
+    ({"cone_band_compact_after": 4}, "cone_hybrid", NotImplementedError),
 ])
-def test_unported_branches_raise(change, render):
+def test_check_supported_rejects(stream, change, render, error):
+    """What `step` still refuses: what the reference refuses (an unknown
+    render renders black there; the hybrid without the dense mirror) and
+    the four band knobs that are not ported. The same knobs pass for every
+    other render, which does not read them."""
     cfg = dataclasses.replace(TCFG, **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         pipeline.check_supported(cfg, render)
-    if change:
-        with pytest.raises(NotImplementedError):
-            pipeline.init_state(cfg)
+    depth, color, gt = stream
+    state = pipeline.init_state(cfg, initial_pose=to_t(gt[0]), device=DEVICE)
+    with pytest.raises(error):
+        pipeline.step(state, convert.frame_from_numpy(
+            depth[0], color[0], device=DEVICE), cfg, render=render)
+    if render == "cone_hybrid":
+        pipeline.check_supported(cfg, "cone")
 
 
 def test_sources_match_reference():
@@ -181,7 +256,7 @@ def test_port_imports_and_steps_without_jax():
         "from octree_slam_tpu_torch.sensor import sources\n"
         "from octree_slam_tpu_torch.utils import metrics, timing\n"
         "from octree_slam_tpu_torch.map import mips\n"
-        "from octree_slam_tpu_torch.render import conesplat, raycast\n"
+        "from octree_slam_tpu_torch.render import conesplat, hybrid, raycast\n"
         "cfg = SLAMConfig(width=32, height=24, focal_x=28.0, focal_y=28.0,"
         " pyramid_depth=2, pyramid_iters=(2, 2), voxel_resolution=0.1,"
         " max_depth=5, node_capacity=1 << 12, leaf_capacity=1 << 10,"
@@ -192,7 +267,7 @@ def test_port_imports_and_steps_without_jax():
         "s = pipeline.init_state(cfg, initial_pose=pose, device='cpu')\n"
         "s, out = pipeline.step(s, f, cfg)\n"
         "assert int(out.map_leaves) > 0\n"
-        "for render in ('cone', 'cone_march'):\n"
+        "for render in ('cone', 'cone_march', 'cone_hybrid'):\n"
         "    s, out = pipeline.step(s, f, cfg, render=render)\n"
         "    assert float(out.framebuffer[..., :3].max()) > 0\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
@@ -257,11 +332,6 @@ def test_entry_points_default_to_the_card():
             call()
 
 
-def _frame(depth, color, i):
-    return jsources.Frame(jnp.asarray(depth[i]), jnp.asarray(color[i]),
-                          jnp.float32(0))
-
-
 # each (config, render) pair costs one JAX compile of the whole step, so
 # the streams share configs and stay short
 STREAMS = {
@@ -290,7 +360,7 @@ def test_cone_renders_stream_parity(stream, name):
     assert isinstance(tstate.accel, mips.RenderCache if cfg.use_dense_mips
                       else raycast.AccelGrid)
     for i, render in enumerate(renders):
-        jstate, jo = jpipeline.step(jstate, _frame(depth, color, i), cfg,
+        jstate, jo = jpipeline.step(jstate, jax_frame(depth, color, i), cfg,
                                     render=render)
         tstate, to = pipeline.step(
             tstate, convert.frame_from_numpy(depth[i], color[i],
@@ -391,11 +461,11 @@ def test_state_with_mirror_carries_over(stream):
     depth, color, gt = stream
     jstate = jpipeline.init_state(CFG, initial_pose=jnp.asarray(gt[0]))
     for i in range(2):
-        jstate, _ = jpipeline.step(jstate, _frame(depth, color, i), CFG,
+        jstate, _ = jpipeline.step(jstate, jax_frame(depth, color, i), CFG,
                                    render="cone_march")
     tstate = convert.state_from_numpy(_np_state(jstate), TCFG, device=DEVICE)
     assert_mirror_equal(tstate.accel, jstate.accel, "carried")
-    jstate, jo = jpipeline.step(jstate, _frame(depth, color, 2), CFG,
+    jstate, jo = jpipeline.step(jstate, jax_frame(depth, color, 2), CFG,
                                 render="cone_march")
     tstate, to = pipeline.step(
         tstate, convert.frame_from_numpy(depth[2], color[2], device=DEVICE),

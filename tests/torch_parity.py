@@ -109,11 +109,12 @@ def orbit_frames(cfg, n, step_angle=0.015, radius=2.0):
     return np.stack(depths), np.stack(colors), np.stack(poses)
 
 
-def assert_mirror_equal(tcache, jcache, what=""):
-    """A port RenderCache against a JAX one, word for word."""
-    np.testing.assert_array_equal(words(tcache.values),
-                                  np.asarray(jcache.values),
-                                  err_msg=f"{what} values")
+def assert_mirror_equal(tcache, jcache, what="", lo=0):
+    """A port RenderCache against a JAX one, word for word: `values` from
+    cell `lo` on, `occ` and `dist`."""
+    np.testing.assert_array_equal(words(tcache.values)[lo:],
+                                  np.asarray(jcache.values)[lo:],
+                                  err_msg=f"{what} values from cell {lo}")
     np.testing.assert_array_equal(tcache.occ.numpy(), np.asarray(jcache.occ),
                                   err_msg=f"{what} occ")
     np.testing.assert_array_equal(tcache.dist.numpy(),
@@ -130,3 +131,71 @@ def close_share(a, b, tol=1e-4) -> float:
     with np.errstate(invalid="ignore"):
         same = (np.abs(a - b) <= tol) | ((a == b))   # inf == inf counts
     return float(same.all(-1).mean())
+
+
+def jax_frame(depth, color, i):
+    """Frame i of a numpy stream as the JAX package's Frame."""
+    import jax.numpy as jnp
+    from octree_slam_tpu.sensor import sources
+    return sources.Frame(jnp.asarray(depth[i]), jnp.asarray(color[i]),
+                         jnp.float32(0))
+
+
+def step_both(jstate, tstate, cfg, tcfg, stream, i, render):
+    """Frame i of `stream` through the JAX step and the port's step.
+    Returns (jstate, jout, tstate, tout)."""
+    from octree_slam_tpu import pipeline as jpipeline
+    from octree_slam_tpu_torch import convert, pipeline
+    depth, color, _ = stream
+    jstate, jo = jpipeline.step(jstate, jax_frame(depth, color, i), cfg,
+                                render=render)
+    tstate, to = pipeline.step(
+        tstate, convert.frame_from_numpy(depth[i], color[i], device=DEVICE),
+        tcfg, render=render)
+    return jstate, jo, tstate, to
+
+
+def assert_step_parity(tstate, to, jstate, jo, where, pose_atol=1e-4,
+                       fb_share=0.99, exact=True):
+    """One frame's outputs and the state's integer structures, port against
+    JAX: pose within `pose_atol`; node and leaf counts, the overflow and
+    divergence flags and the three staleness flags equal; at least
+    `fb_share` of the framebuffer's pixels within 1e-4; the saturation mask
+    and the directory cache (keys, nodes, values, positions) bit for bit;
+    the keyframe anchor's pose and seed within `pose_atol`. With
+    exact=False (a stream whose poses differ in the last bits, so that a
+    point on a cell boundary may fall into the neighbouring leaf) the
+    counts may differ by 1% and the integer structures are not compared."""
+    np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
+                               atol=pose_atol, err_msg=where)
+    for name in ("map_nodes", "map_leaves") + (("last_insert_key",) if exact
+                                               else ()):
+        j, t = int(getattr(jo, name)), int(getattr(to, name))
+        assert abs(t - j) <= (0 if exact else 0.01 * j), (where, name, t, j)
+    for name in ("diverged", "map_overflowed", "unique_overflow"):
+        assert bool(getattr(to, name)) == bool(getattr(jo, name)), \
+            (where, name)
+    for flag in ("interior_stale", "mirror_stale", "stamps_stale",
+                 "initialized"):
+        assert bool(getattr(tstate, flag)) == bool(getattr(jstate, flag)), \
+            (where, flag)
+    assert bool(torch.isfinite(to.framebuffer).all()), where
+    assert close_share(to.framebuffer, jo.framebuffer) >= fb_share, where
+    for name in (("sat_mask", "dir_keys", "dir_nodes", "dir_vals", "dir_pos")
+                 if exact else ()):
+        np.testing.assert_array_equal(
+            words(getattr(tstate, name)), words(getattr(jstate, name)),
+            err_msg=f"{where} {name}")
+    for name in ("key_pose", "key_T_cam"):
+        np.testing.assert_allclose(
+            getattr(tstate, name).numpy(), np.asarray(getattr(jstate, name)),
+            atol=pose_atol, err_msg=f"{where} {name}")
+    assert len(tstate.key_pyramid) == len(jstate.key_pyramid), where
+
+
+def assert_leaf_level_equal(tcache, jcache, max_depth, what=""):
+    """The part of the dense mirror a lazy hybrid frame keeps, port against
+    JAX, word for word: the leaf level of `values` with its distance
+    stamps, `occ` and `dist`."""
+    assert_mirror_equal(tcache, jcache, what,
+                        lo=((1 << (3 * max_depth)) - 8) // 7)
