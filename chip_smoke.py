@@ -44,9 +44,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the last frame rendered by the slab cone, the exact march and the
      hybrid from copies of the state, and the two PSNRs against the march
      (cone_psnr_db, cone_hybrid_psnr_db: the hybrid's must be the higher);
-     then that heal_for_march is idempotent.
+     then that heal_for_march is idempotent;
+ 11. app: the same orbit through app.run_slam, the loop a user runs, held
+     to the pinned ATE, nodes and leaves, with its frame median beside the
+     bare step loop's and its host reads a frame;
+ 12. checkpoint: save_state -> load_state of that run's final state, every
+     field word for word, and one more frame from the loaded state and
+     from a copy of the original alike;
+ 13. tiering at full size: the final state's leaves spilled to host RAM
+     with the camera far away and restored with it back, the leaf words
+     and every ancestor's refreshed word unchanged;
+ 14. grow: the orbit through run_slam with a pool and a registry small
+     enough that each doubles (the pool across a prealloc boundary),
+     ending with no overflow, a registry equal to an extraction of the
+     pool and the pinned ATE;
+ 15. relocalize: the orbit with frame 8 blanked, recovered by relocalize
+     (one bilateral and one gated-pyramid launch over the four candidates
+     per attempt);
+ 16. tum: a 14-frame 640x480 TUM-format sequence written by the port and
+     replayed through its CLI, with slam_fps (frames staged on the card)
+     and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder).
 Every orbit starts with the kernels' launch counts at 0 and must find each
-kernel launched once per frame. The last lines are the card's name and
+kernel launched once per frame (plus one batched launch per recovery
+attempt). The last lines are the card's name and
 power limit, a JSON line of the kernels, and {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -54,11 +74,15 @@ power limit, a JSON line of the kernels, and {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -74,12 +98,14 @@ KERNELS = {
         "replaces": "octree_slam_tpu/sensor/pallas_ops.py:149",
         "cases": [((480, 640), None), ((1080, 1920), None),
                   ((479, 641), None), ((483, 645), None),
-                  ((4, 240, 320), None), ((2, 1080, 1920), None)],
+                  ((4, 240, 320), None), ((2, 1080, 1920), None),
+                  ((4, 480, 640), None)],
     },
     "gated_pyramid5x5": {
         "replaces": "octree_slam_tpu/sensor/pallas_ops.py:160",
         "cases": [((480, 640), 2), ((479, 641), 2), ((483, 645), 2),
-                  ((4, 240, 320), 2), ((480, 640), 1), ((240, 320), 1)],
+                  ((4, 240, 320), 2), ((480, 640), 1), ((240, 320), 1),
+                  ((4, 480, 640), 2)],
     },
 }
 SOURCE = "octree_slam_tpu_torch/csrc/sensor_stencils.cu"
@@ -97,6 +123,12 @@ CONE_PSNR_FLOOR_DB = 25.0
 HYBRID_BAND = {"cone_band_cap": 57_600, "cone_band_iters": 24}
 # a feature orbit's own trajectory bound (the verify skill's good output)
 FEATURE_ATE_MAX_M = 0.01
+# the recovery pyramid's batch: the config's reloc_candidates
+RELOC_CANDIDATES = 4
+# the relocalize phase's blanked frame, and its bound on the last frame's
+# translation error (the reference package's test)
+RELOC_GARBAGE_FRAME, RELOC_ERR_MAX_M = 8, 0.05
+
 
 
 class SmokeFailure(RuntimeError):
@@ -304,27 +336,35 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
+    sizes = []
     for i in range(ORBIT_WARMUP):
         state, out = pipeline.step(state, frames[i], cfg, render=render)
+        sizes.append(torch.stack([out.map_nodes, out.map_leaves]))
     timer = EventTimer()
-    est = []
+    est, host_ms = [], []
     for i in range(ORBIT_WARMUP, len(frames) - 1):
+        t1 = time.perf_counter()
         with timer.time("frame"):
             state, out = pipeline.step(state, frames[i], cfg, render=render)
+        host_ms.append(1e3 * (time.perf_counter() - t1))
         est.append(out.pose)
+        sizes.append(torch.stack([out.map_nodes, out.map_leaves]))
     with _HostReads() as reads, timer.time("frame"):
         state, out = pipeline.step(state, frames[-1], cfg, render=render)
     est.append(out.pose)
+    sizes.append(torch.stack([out.map_nodes, out.map_leaves]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
 
     ms = timer.ms("frame")
+    sizes = torch.stack(sizes).tolist()
     fb = out.framebuffer
     res = {
         "render": render, "path": label,
         "frame_ms_median": statistics.median(ms),
         "frame_ms_p90": float(np.percentile(ms, 90)),
+        "host_frame_ms_median": statistics.median(host_ms),
         "fps": 1000.0 * len(ms) / sum(ms),
         "ate_rmse_m": ate_rmse(
             np.stack([p.cpu().numpy() for p in est]),
@@ -334,6 +374,8 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
         "map_overflowed": bool(out.map_overflowed),
         "fb_hit_pixels": int((fb[..., :3].sum(-1) > 0).sum()),
         "launches": launches, "host_reads_last_frame": reads.count,
+        # (nodes, leaves) after each frame, read once after the run
+        "map_size_by_frame": sizes,
         "wall_s_with_warmup": wall,
         "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
     }
@@ -797,6 +839,427 @@ def phase_reference():
     check(not torch.equal(states["cpu"].key_pose, gts[0]),
           "[reference] features: the anchor never moved")
 
+def _flat_fields(state):
+    """{field name: numpy array} of a port state, packed words as uint32."""
+    from octree_slam_tpu_torch import app, convert
+    return app._flatten(convert.state_to_numpy(state))
+
+
+def _orbit_ate(poses, gts_np) -> float:
+    """The pinned orbit's ATE: the frames after the warm-up."""
+    from octree_slam_tpu_torch.utils.metrics import ate_rmse
+    return ate_rmse(np.stack(poses[ORBIT_WARMUP:]),
+                    np.stack(gts_np[ORBIT_WARMUP:]))
+
+
+def _run_slam(cfg, frames, gts, label, **kw):
+    """app.run_slam over the orbit on the card, its JSON event lines kept
+    (and echoed), the kernels' launch counts set to 0 just before and read
+    just after, and its host reads counted. Returns (result, final state,
+    events, launches, launch batches, host reads)."""
+    from octree_slam_tpu_torch import app
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    gts_np = [g.cpu().numpy() for g in gts]
+    sink, out = [], io.StringIO()
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    with _HostReads() as reads, contextlib.redirect_stdout(out):
+        res = app.run_slam(lambda i: frames[i], len(frames), cfg,
+                           initial_pose=gts[0], gt_fn=lambda i: gts_np[i],
+                           render_every=1, render_mode="splat",
+                           state_out=sink, device="cuda", **kw)
+        torch.cuda.synchronize()
+    launches = dict(cuda_ops.LAUNCHES)
+    batches = {k: dict(v) for k, v in cuda_ops.LAUNCH_BATCHES.items()}
+    events = [json.loads(line) for line in out.getvalue().splitlines()
+              if line.startswith("{")]
+    for e in events:
+        print(f"[{label}]   event {json.dumps(e)}")
+    return res, sink[0], events, launches, batches, reads.count
+
+
+def _bare_loop(cfg, frames, gts):
+    """The orbit through init_state + step in a plain loop, timed as
+    run_slam times its frames (host clock per frame, no synchronisation),
+    with its host reads counted (init_state's uploads included). Returns
+    (frame ms median, host reads)."""
+    from octree_slam_tpu_torch import pipeline
+    torch.cuda.synchronize()
+    frame_s = []
+    with _HostReads() as reads:
+        state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
+        t_prev = time.perf_counter()
+        for f in frames:
+            state, _ = pipeline.step(state, f, cfg)
+            t = time.perf_counter()
+            frame_s.append(t - t_prev)
+            t_prev = t
+        torch.cuda.synchronize()
+    return 1e3 * statistics.median(frame_s), reads.count
+
+
+def phase_app(smi: str, cfg, frames, gts):
+    """Phase 11: the orbit through app.run_slam, held to the pinned map and
+    ATE, in turns with the bare step loop (bare, app, app, bare): frame
+    medians on the host clock and host reads of whole runs."""
+    bare = [_bare_loop(cfg, frames, gts)]
+    res, state, events, launches, _, reads = _run_slam(cfg, frames, gts,
+                                                       "app")
+    res2, _, _, _, _, reads2 = _run_slam(cfg, frames, gts, "app")
+    bare.append(_bare_loop(cfg, frames, gts))
+    gts_np = [g.cpu().numpy() for g in gts]
+    ate = _orbit_ate(res.poses, gts_np)
+    leaves = int(state.leaves.count)
+    print(f"[app] {smi} | " + json.dumps({
+        "frames": res.frames, "ate_rmse_m": ate, "map_nodes": res.map_nodes,
+        "map_leaves": leaves, "diverged": res.diverged,
+        "frame_ms_median_in_turns": {
+            "bare": bare[0][0], "run_slam": 1e3 / res.steady_fps,
+            "run_slam_again": 1e3 / res2.steady_fps, "bare_again": bare[1][0]},
+        "host_reads_per_run": {"bare": bare[0][1], "run_slam": reads,
+                               "run_slam_again": reads2,
+                               "bare_again": bare[1][1]},
+        "fps": res.fps, "max_frame_s": res.max_frame_s,
+        "launches": launches}))
+    check(res.frames == ORBIT_FRAMES and not res.diverged,
+          "[app] the run did not finish tracked")
+    check(abs(ate - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
+          f"[app] ATE {ate:.9f} m, expected {ORBIT_ATE_M}")
+    check(res.map_nodes == ORBIT_MAP_NODES and leaves == ORBIT_MAP_LEAVES,
+          f"[app] map {res.map_nodes} nodes / {leaves} leaves, expected "
+          f"{ORBIT_MAP_NODES} / {ORBIT_MAP_LEAVES}")
+    check(not events, f"[app] unexpected events {events}")
+    for name in KERNELS:
+        check(launches[name] == ORBIT_FRAMES,
+              f"[app] {name} launches {launches[name]} != {ORBIT_FRAMES}")
+    # the loop adds only the end of run's two reads (the live diverged
+    # flag, the last map size) to the bare loop's: its trailing vector
+    # waits on an event
+    check(reads <= bare[0][1] + 2,
+          f"[app] {reads} host reads against the bare loop's {bare[0][1]}")
+    return state, res.final_cfg, launches
+
+
+def phase_checkpoint(smi: str, state, cfg, frame):
+    """Phase 12: save_state -> load_state word for word, then one more
+    splat frame from the loaded state and from a copy of the original."""
+    from octree_slam_tpu_torch import app, convert, pipeline
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        app.save_state(path, state, cfg)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded, lcfg = app.load_state(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    a, b = _flat_fields(state), _flat_fields(loaded)
+    off = {k: int(np.count_nonzero(a[k] != b[k])) for k in a
+           if a[k].shape == b[k].shape}
+    n_words = sum(v.size for v in a.values())
+    s1, o1 = pipeline.step(loaded, frame, lcfg)
+    s2, o2 = pipeline.step(convert.clone_state(state), frame, cfg)
+    same = {"pose": torch.equal(o1.pose, o2.pose),
+            "pool.value": torch.equal(s1.pool.value, s2.pool.value),
+            "pool.child": torch.equal(s1.pool.child, s2.pool.child),
+            "leaves.keys": torch.equal(s1.leaves.keys, s2.leaves.keys),
+            "leaves.vals": torch.equal(s1.leaves.vals, s2.leaves.vals)}
+    print(f"[checkpoint] {smi} | " + json.dumps({
+        "save_s": t_save, "load_s": t_load, "file_bytes": size,
+        "fields": len(a), "words": int(n_words),
+        "differing_words": sum(off.values()), "next_frame_equal": same}))
+    check(a.keys() == b.keys() and len(off) == len(a),
+          "[checkpoint] the loaded state has other fields or shapes")
+    check(all(a[k].dtype == b[k].dtype for k in a),
+          "[checkpoint] a loaded field has another dtype")
+    check(not any(off.values()),
+          f"[checkpoint] differing words: "
+          f"{ {k: v for k, v in off.items() if v} }")
+    check(lcfg == cfg, "[checkpoint] the loaded config differs")
+    check(all(same.values()), f"[checkpoint] the next frame differs: {same}")
+    del loaded, s1, s2
+
+
+def phase_tiering(smi: str, state, cfg):
+    """Phase 13: every leaf spilled to host RAM (camera far away) and
+    restored (camera back): the sorted (key, word) list and the refreshed
+    interiors (through the dense mirror, keyed by cell) unchanged."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.map import mips, svo, tiering
+    lvl = pipeline._accel_level(cfg)
+
+    def sorted_words(keys, vals):
+        o = np.argsort(keys, kind="stable")
+        return keys[o], vals[o]
+
+    def mirror(pool):
+        pool = svo.refresh_interior(pool._replace(value=pool.value.clone()),
+                                    depth=cfg.max_depth)
+        return mips.rebuild_from_pool(pool, max_depth=cfg.max_depth,
+                                      dist_level=lvl).values
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, keys0, vals0 = tiering._leaf_snapshot(state, cfg)
+    t_snap = time.perf_counter() - t0
+    before = mirror(state.pool)
+    tcfg = dataclasses.replace(cfg, host_spill=True)
+    archive = tiering.HostArchive(tcfg.tier_level)
+    cam = state.pose[:3, 3].cpu().numpy()
+    t0 = time.perf_counter()
+    state, tcfg, n_spilled = tiering.spill_cold(
+        state, tcfg, archive, camera_pos=cam + 1000.0)
+    torch.cuda.synchronize()
+    t_spill = time.perf_counter() - t0
+    n_left = int(state.leaves.count)
+    ak = np.concatenate([k for k, _ in archive.cells.values()])
+    av = np.concatenate([v for _, v in archive.cells.values()])
+    n_cells = len(archive)
+    arch_same = all(np.array_equal(x, y) for x, y in zip(
+        sorted_words(ak, av), sorted_words(keys0, vals0)))
+    big = dataclasses.replace(tcfg, restore_radius=1e6)
+    t0 = time.perf_counter()
+    state, big, n_restored = tiering.restore_due(state, big, archive,
+                                                 camera_pos=cam)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    _, keys1, vals1 = tiering._leaf_snapshot(state, big)
+    k0, v0 = sorted_words(keys0, vals0)
+    k1, v1 = sorted_words(keys1, vals1)
+    differing = (int(np.count_nonzero(v0 != v1)) if k0.shape == k1.shape
+                 and np.array_equal(k0, k1) else -1)
+    after = mirror(state.pool)
+    interior_off = int((before != after).sum())
+    print(f"[tiering] {smi} | " + json.dumps({
+        "leaves": int(keys0.size), "snapshot_s": t_snap, "spill_s": t_spill,
+        "spilled": n_spilled, "archived_cells": n_cells,
+        "leaves_left_on_card": n_left, "archive_equals_snapshot": arch_same,
+        "restore_s": t_restore, "restored": n_restored,
+        "differing_leaf_words": differing,
+        "differing_mirror_words_after_refresh": interior_off,
+        "node_capacity": big.node_capacity}))
+    check(n_spilled == keys0.size and n_left == 0 and arch_same,
+          "[tiering] the archive does not hold every leaf of the snapshot")
+    check(n_restored == keys0.size and len(archive) == 0,
+          f"[tiering] restored {n_restored} of {keys0.size} leaves")
+    check(differing == 0, f"[tiering] {differing} leaf words differ after "
+          f"the round trip (-1: the key sets differ)")
+    check(interior_off == 0, f"[tiering] {interior_off} refreshed words "
+          f"differ after the round trip")
+
+
+def _pre_nodes(keys: np.ndarray, depth: int, pre: int) -> int:
+    """Nodes a pool with `pre` dense levels holds for these leaf keys: the
+    dense region plus one 8-slot tile under every distinct level-l prefix
+    of a leaf path, l = pre .. depth-1."""
+    from octree_slam_tpu_torch.map import svo
+    return svo._LEVEL_BASE[pre + 1] + 8 * sum(
+        np.unique(keys >> (3 * (depth - l))).size for l in range(pre, depth))
+
+
+def phase_grow(smi: str, cfg, frames, gts, registry, sizes):
+    """Phase 14: the orbit through run_slam with capacities small enough
+    that the 3/4 triggers fire: the pool's doubling crosses from 4 to 5
+    dense levels (a rebuild), the registry's pads."""
+    from octree_slam_tpu_torch.map import svo
+    keys = registry[0].numpy()
+    depth = cfg.max_depth
+    n6 = _pre_nodes(keys, depth, svo.prealloc_levels(cfg.node_capacity))
+    n4 = _pre_nodes(keys, depth, 4)
+    lo = 8 * svo._LEVEL_BASE[6] // 2      # doubling from here on is 4 -> 5
+    # the 3/4 trigger at 70% of the final 4-level node count at most
+    node_cap = max(lo, -(-int(n4 * 0.7 / 0.75) // 8) * 8)
+    leaf_cap = 1 << 16
+    print(f"[grow] {smi} | orbit (nodes, leaves) by frame: {sizes} | final "
+          f"leaves' node count with 6 dense levels {n6} (pool "
+          f"{ORBIT_MAP_NODES}), with 4 dense levels {n4} | capacities "
+          f"{node_cap} nodes, {leaf_cap} leaves")
+    check(n6 == ORBIT_MAP_NODES, "[grow] the node count from the leaf keys "
+          "does not reproduce the pool's")
+    check(svo.prealloc_levels(node_cap) == 4
+          and svo.prealloc_levels(2 * node_cap) == 5
+          and node_cap * 3 // 4 < n4,
+          f"[grow] no 4-level capacity has its 3/4 trigger below {n4} "
+          f"nodes and crosses to 5 levels when doubled")
+    gcfg = dataclasses.replace(cfg, node_capacity=node_cap,
+                               leaf_capacity=leaf_cap)
+    res, state, events, launches, _, _ = _run_slam(gcfg, frames, gts,
+                                                   "grow")
+    gts_np = [g.cpu().numpy() for g in gts]
+    ate = _orbit_ate(res.poses, gts_np)
+    fc = res.final_cfg
+    grows = [e for e in events if e.get("event") == "map_grow"]
+    pool = state.pool
+    if bool(state.interior_stale):
+        pool = svo.refresh_interior(
+            pool._replace(value=pool.value.clone()), depth=depth)
+    ex, _ = svo.extract_all_leaves(pool, depth=depth,
+                                   start_capacity=fc.leaf_capacity)
+    n = int(state.leaves.count)
+    reg = torch.sort(state.leaves.keys[:n]).values
+    ext = torch.sort(ex.keys[:int(ex.count)]).values
+    same = reg.shape == ext.shape and torch.equal(reg, ext)
+    print(f"[grow] {smi} | " + json.dumps({
+        "ate_rmse_m": ate, "growth_frame_s": res.growth_frame_s,
+        "max_frame_s": res.max_frame_s, "frame_ms_median": 1e3 / res.steady_fps,
+        "node_capacity": [node_cap, fc.node_capacity],
+        "leaf_capacity": [leaf_cap, fc.leaf_capacity],
+        "dense_levels": [svo.prealloc_levels(node_cap),
+                         svo.prealloc_levels(fc.node_capacity)],
+        "map_nodes": res.map_nodes, "map_leaves": n,
+        "pool_overflowed": bool(state.pool.overflowed),
+        "registry_overflowed": bool(state.leaves.overflowed),
+        "registry_equals_extraction": same, "launches": launches}))
+    check(any(e["node_capacity"] == 2 * node_cap for e in grows),
+          "[grow] the pool never doubled")
+    check(any(e["leaf_capacity"] > leaf_cap for e in grows),
+          "[grow] the registry never doubled")
+    check(svo.prealloc_levels(fc.node_capacity) == 5,
+          "[grow] the pool did not cross to 5 dense levels")
+    check(not bool(state.pool.overflowed)
+          and not bool(state.leaves.overflowed),
+          "[grow] the pool or the registry overflowed")
+    check(same, "[grow] the registry is not the extraction of the pool")
+    check(not res.diverged and abs(ate - ORBIT_ATE_M) <= ORBIT_ATE_TOL_M,
+          f"[grow] ATE {ate:.9f} m, expected {ORBIT_ATE_M}")
+    for name in KERNELS:
+        check(launches[name] == ORBIT_FRAMES,
+              f"[grow] {name} launches {launches[name]} != {ORBIT_FRAMES}")
+    return launches
+
+
+def phase_relocalize(smi: str, cfg, frames, gts):
+    """Phase 15: the orbit with frame RELOC_GARBAGE_FRAME blanked (zero
+    depth and colour) recovers by relocalization; each attempt is one
+    launch of each kernel over the four candidates."""
+    rcfg = dataclasses.replace(cfg, keypose_every=2,
+                               reloc_candidates=RELOC_CANDIDATES)
+    f = frames[RELOC_GARBAGE_FRAME]
+    frames = list(frames)
+    frames[RELOC_GARBAGE_FRAME] = type(f)(torch.zeros_like(f.depth),
+                                          torch.zeros_like(f.color),
+                                          f.timestamp)
+    t0 = time.perf_counter()
+    res, state, events, launches, batches, _ = _run_slam(
+        rcfg, frames, gts, "relocalize")
+    wall = time.perf_counter() - t0
+    attempts = [e for e in events
+                if e.get("event") in ("relocalize", "relocalize_failed")]
+    gt_last = gts[-1].cpu().numpy()
+    err = float(np.linalg.norm(res.poses[-1][:3, 3] - gt_last[:3, 3]))
+
+    # one attempt alone on the recovered state, timed, with its launches
+    from octree_slam_tpu_torch import relocalize
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    keyposes = [p for p in res.poses[:RELOC_GARBAGE_FRAME:2]]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        with _HostReads() as reads:
+            t0 = time.perf_counter()
+            _, ok, diag = relocalize.relocalize(state, rcfg, keyposes)
+            attempt_ms = 1e3 * (time.perf_counter() - t0)
+    one = dict(cuda_ops.LAUNCHES)
+    print(f"[relocalize] {smi} | " + json.dumps({
+        "relocalizations": res.relocalizations,
+        "attempts": len(attempts), "diverged": res.diverged,
+        "last_frame_translation_err_m": err, "run_wall_s": wall,
+        "launches": launches, "launch_batches": batches,
+        "attempt_ms": attempt_ms, "attempt_launches": one,
+        "attempt_host_reads": reads.count, "attempt_ok": ok,
+        "attempt_diag": diag,
+        "min_inliers": int(rcfg.reloc_min_inlier_frac * rcfg.num_pixels)}))
+    check(res.relocalizations >= 1, "[relocalize] no recovery")
+    check(not res.diverged, "[relocalize] diverged at the end")
+    check(err < RELOC_ERR_MAX_M,
+          f"[relocalize] last frame {err:.4f} m off, bound {RELOC_ERR_MAX_M}")
+    check(len(attempts) >= 1, "[relocalize] no attempt")
+    for name in KERNELS:
+        want = {1: ORBIT_FRAMES, RELOC_CANDIDATES: len(attempts)}
+        check(launches[name] == ORBIT_FRAMES + len(attempts)
+              and batches[name] == want,
+              f"[relocalize] {name}: {launches[name]} launches by batch "
+              f"{batches[name]}, expected {want}")
+        check(one[name] == 1, f"[relocalize] one attempt launched {name} "
+              f"{one[name]} times")
+    return launches
+
+
+def phase_tum(smi: str):
+    """Phase 16: a 14-frame 640x480 TUM-format sequence written by the
+    port, replayed through its CLI (the last JSON line and the trajectory
+    file are checked), then timed as bench_configs.config_tum times it:
+    slam_fps with the frames staged on the card, and
+    e2e_fps_incl_decode_upload through the decoding feeder."""
+    from octree_slam_tpu_torch import SLAMConfig, app
+    from octree_slam_tpu_torch.io import tum
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        root = tum.write_sequence(os.path.join(d, "seq"), ORBIT_FRAMES,
+                                  640, 480, device="cuda")
+        t_write = time.perf_counter() - t0
+        traj = os.path.join(d, "traj.txt")
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        with contextlib.redirect_stdout(out):
+            app.main(["--source", "tum", "--tum-root", root, "--frames",
+                      str(ORBIT_FRAMES), "--save-trajectory", traj,
+                      "--log-every", "0"])
+            torch.cuda.synchronize()
+        launches = dict(cuda_ops.LAUNCHES)
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        est = tum._read_groundtruth(traj)
+
+        ds = tum.TUMDataset(root, max_frames=ORBIT_FRAMES, device="cuda")
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds.decode(i)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+        h, w = ds.decode(0)[0].shape
+        cfg = SLAMConfig(width=w, height=h, focal_x=ds.FX,
+                         focal_y=ds.FY, max_depth=9, voxel_resolution=0.02,
+                         node_capacity=1 << 20, leaf_capacity=1 << 17)
+        init = ds.gt_pose(0)
+        quiet = contextlib.redirect_stdout(io.StringIO())
+        with quiet:
+            warm = ds.prefetched()
+            app.run_slam(lambda i: next(warm), 2, cfg, initial_pose=init,
+                         device="cuda")
+            warm.close()
+            frames = ds.prefetched()
+            e2e = app.run_slam(lambda i: next(frames), len(ds), cfg,
+                               initial_pose=init, gt_fn=ds.gt_pose,
+                               device="cuda")
+            staged = [ds.frame(i) for i in range(len(ds))]
+            torch.cuda.synchronize()
+            res = app.run_slam(lambda i: staged[i], len(ds), cfg,
+                               initial_pose=init, gt_fn=ds.gt_pose,
+                               device="cuda")
+    print(f"[tum] {smi} | " + json.dumps({
+        "cli": rec, "trajectory_rows": len(est), "write_s": t_write,
+        "png_decode_ms_per_frame": decode_ms,
+        "slam_fps": res.fps, "e2e_fps_incl_decode_upload": e2e.fps,
+        "ate_rmse_m": res.ate_rmse, "e2e_ate_rmse_m": e2e.ate_rmse,
+        "launches": launches}))
+    check(rec["frames"] == ORBIT_FRAMES and rec["diverged"] is False,
+          f"[tum] the CLI run: {rec}")
+    check(rec["ate_rmse"] is not None and rec["ate_rmse"] < FEATURE_ATE_MAX_M,
+          f"[tum] the CLI run's ATE {rec['ate_rmse']}")
+    check(len(est) == ORBIT_FRAMES
+          and all(np.isfinite(T).all() for _, T in est),
+          "[tum] the trajectory file does not read back")
+    check(not res.diverged and not e2e.diverged
+          and res.ate_rmse < FEATURE_ATE_MAX_M
+          and e2e.ate_rmse < FEATURE_ATE_MAX_M,
+          "[tum] the timed runs lost track")
+    for name in KERNELS:
+        check(launches[name] == ORBIT_FRAMES,
+              f"[tum] {name} launches {launches[name]} != {ORBIT_FRAMES}")
+    return launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -811,8 +1274,8 @@ def main(argv=None):
     cfg = _bench_config()
     frames, gts = _orbit(cfg, ORBIT_FRAMES, 0.01, "cuda")
     launches = {}
-    launches["splat"], state, _ = phase_orbit(smi, cfg, frames, gts, "splat",
-                                              args.profile)
+    launches["splat"], state, splat_res = phase_orbit(
+        smi, cfg, frames, gts, "splat", args.profile)
     splat_registry = _sorted_registry(state)
     del state
     phase_reference()
@@ -823,6 +1286,14 @@ def main(argv=None):
             render, args.profile)
     launches.update(phase_features(smi, cfg, frames, gts, splat_registry))
     phase_fidelity(smi, cfg, hybrid_cfg, frames, gts)
+    state, app_cfg, launches["app"] = phase_app(smi, cfg, frames, gts)
+    phase_checkpoint(smi, state, app_cfg, frames[-1])
+    phase_tiering(smi, state, app_cfg)
+    del state
+    launches["grow"] = phase_grow(smi, cfg, frames, gts, splat_registry,
+                                  splat_res["map_size_by_frame"])
+    launches["relocalize"] = phase_relocalize(smi, cfg, frames, gts)
+    launches["tum"] = phase_tum(smi)
     # no single PyTorch call computes either function, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": spec["replaces"],
@@ -830,6 +1301,9 @@ def main(argv=None):
                 "launches_per_frame": launches["splat"][name] / ORBIT_FRAMES,
                 "launches_by_path": {path: n[name]
                                      for path, n in launches.items()},
+                # the recovery pyramid's launches take the candidates as
+                # one batch
+                "relocalize_launch_batch": RELOC_CANDIDATES,
                 **report[name]} for name, spec in KERNELS.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,11 @@ use_dense_mips is off), "cone_hybrid" (the slab cone with its edge band
 marched, `render/hybrid.py`) and "none", lazy and eager interiors, the
 keyframe anchor, the saturation gate, the photometric term, the insert's
 directory cache, the caller-driven pager (`pipeline.insert_remainder`) and
-`pipeline.heal_for_march`. Both
+`pipeline.heal_for_march`. Around the step it has the app loop
+(`app.run_slam` with growth, host tiering, relocalization and checkpoints,
+and the CLI, `python -m octree_slam_tpu_torch.app`), TUM replay
+(`io/tum.py` on its own PNG codec, `io/png.py`) and the `Octree` facade
+(`map/octree.py`). Both
 sensor stencils of the reference (the 7x7 bilateral filter and the 5x5
 gated subsample) run as hand-written CUDA kernels for sm_90a
 (`csrc/sensor_stencils.cu`, bound in `sensor/cuda_ops.py`); every other op
@@ -22,9 +26,11 @@ is plain PyTorch, as the reference reaches no TPU kernel anywhere else. On
 CPU tensors the kernel wrappers run their plain PyTorch versions instead.
 
 The entry points that make tensors (`pipeline.init_state`, `svo.create`,
-`mips.create`, `splat.create_leaf_list`, the `sources` constructors and
-the `convert` readers) put them on the card unless the caller names
-another device, as the CPU tests do; without a card they raise.
+`mips.create`, `splat.create_leaf_list`, the `sources` constructors, the
+`convert` readers, `app.run_slam`, `app.load_state`, `app.main`'s
+`--device`, `io.tum.TUMDataset` and `map.octree.Octree`) put them on the
+card unless the caller names another device, as the CPU tests do; without
+a card they raise.
 
 `pipeline.check_supported` raises where the reference does and for four
 band knobs of the hybrid that are not ported (`render/hybrid.py` says

@@ -3,7 +3,9 @@
 `state_from_numpy` takes a reference `SLAMState` after
 `jax.tree_util.tree_map(np.asarray, state)` and builds the port's
 `SLAMState` on a device; `state_to_numpy` goes back to nested dicts of
-numpy arrays under the reference's field names. u32 words (pool values,
+numpy arrays under the reference's field names (of a state on the "meta"
+device, arrays with the fields' dtypes and shapes and no data: the
+checkpoint reader's template). u32 words (pool values,
 registry values, the dense mirror, the directory's values and the
 saturation mask, whose bit 31 is the int32 sign bit) cross as int32 bit
 patterns through `ndarray.view`, never by a cast, and u16 depth crosses as
@@ -97,7 +99,11 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
 
 
 def _np(t: torch.Tensor, u32: bool = False) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+    if t.is_meta:
+        # a template's field: the dtype and shape, with no data behind them
+        a = np.empty(t.shape, torch.empty((), dtype=t.dtype).numpy().dtype)
+    else:
+        a = t.detach().cpu().numpy()
     return a.view(np.uint32) if u32 else a
 
 

@@ -3,7 +3,7 @@
 Node colour is one 32-bit word r | g<<8 | b<<16 | a<<24 (svo.cu:332). The
 port holds these words as int32 bit patterns: a word whose alpha is above
 127 is negative as an int32, so every unpack masks with `& 0xFF` after the
-(arithmetic) shift. `unpack_rgba_unit` is left for the slice that needs it.
+(arithmetic) shift.
 """
 
 from __future__ import annotations
@@ -29,6 +29,12 @@ def unpack_rgba8(value: torch.Tensor):
     """Unpack an int32 word into integer channels (0..255) as int32."""
     return (value & 0xFF, (value >> 8) & 0xFF, (value >> 16) & 0xFF,
             (value >> 24) & 0xFF)
+
+
+def unpack_rgba_unit(value: torch.Tensor) -> torch.Tensor:
+    """Float rgba in [0, 1] on a new last axis (voxelGridFromKeys,
+    svo.cu:577-580)."""
+    return torch.stack(unpack_rgba8(value), dim=-1).to(torch.float32) / 255.0
 
 
 def alpha_of(value: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Core tensor types of the slice (counterpart: octree_slam_tpu/core/types.py).
 
-Only `Frame` and `PyramidLevel` are ported; the mesh, camera and voxel-grid
-types wait for the slices that use them.
+`Frame`, `PyramidLevel`, `BoundingBox` and `VoxelGrid` are ported; the
+mesh, camera and texture types wait for the offline paths that use them.
 """
 
 from __future__ import annotations
@@ -28,3 +28,21 @@ class PyramidLevel(NamedTuple):
     vertex: torch.Tensor     # f32[h, w, 3] camera-frame points (INF invalid)
     normal: torch.Tensor     # f32[h, w, 3] unit normals (INF invalid)
     intensity: torch.Tensor  # f32[h, w]
+
+
+class BoundingBox(NamedTuple):
+    """Axis-aligned box (common_types.h:8-14: bbox0 = min, bbox1 = max)."""
+
+    bbox0: torch.Tensor  # f32[3] min corner
+    bbox1: torch.Tensor  # f32[3] max corner
+
+
+class VoxelGrid(NamedTuple):
+    """Compacted occupied-voxel list (common_types.h VoxelGrid), padded to
+    a static capacity with `count` live rows."""
+
+    centers: torch.Tensor  # f32[cap, 3]
+    colors: torch.Tensor   # f32[cap, 4] rgba in [0, 1]
+    count: torch.Tensor    # i32[]
+    scale: torch.Tensor    # f32[] half voxel edge (voxelization.cu:78-80)
+    bbox: BoundingBox

@@ -16,10 +16,13 @@ index, value) pairs the dense mirror of map/mips.py scatters). A lazy
 insert can take last frame's directory (`dir_*`: leaf key -> node, value,
 registry position) and then descends only for the keys it misses.
 `tile_topology` and `refresh_interior` rebuild every interior value after
-lazy frames. `insert_exact`, extraction, growth and queries wait for the
-slices that need them. The pool's `child` and `value` tensors are updated
-in place (the JAX code donates them); the returned pool carries the new
-scalars.
+lazy frames. `insert_exact` writes leaf words verbatim (the restore half
+of host tiering and the rebuilds across a prealloc boundary),
+`extract_voxels` / `extract_all_leaves` enumerate the occupied leaves by a
+frontier BFS, `grow_capacity` pads the pool, `reroot_double` doubles the
+volume in place and `query_points` looks points up. The pool's `child` and
+`value` tensors are updated in place (the JAX code donates them); the
+returned pool carries the new scalars.
 """
 
 from __future__ import annotations
@@ -534,3 +537,247 @@ def refresh_interior(pool: SVONodePool, *, depth: int) -> SVONodePool:
         compaction.scatter_set_(pool.value, torch.where(sel, parent, cap),
                                 packed)
     return pool
+
+
+def insert_exact(pool: SVONodePool, keys: torch.Tensor, values: torch.Tensor,
+                 *, depth: int, unique_cap: int = 1 << 16,
+                 min_key: torch.Tensor | None = None,
+                 shallow_level: int = 6, overwrite: bool = True):
+    """Bulk value-exact leaf write, the restore half of host tiering: each
+    unique leaf key gets its packed word verbatim (pushToGPU's
+    re-serialisation, octree.cpp:41-79), missing tiles are allocated as in
+    `insert`, interior values are left for `refresh_interior` or the stale
+    flags.
+
+    keys i32[N] leaf Morton keys at `depth` (< 0 or INVALID_KEY = skip);
+    values i32[N] packed words. A stable sort makes duplicate keys take
+    the value sorted first. More than `unique_cap` distinct keys page like
+    `insert`: re-run with min_key = stats.last_key until
+    stats.unique_overflow clears. overwrite=False writes only leaves still
+    at the fresh-node word, so a restore never clobbers a leaf observed
+    again while its region was spilled.
+    Returns (pool, stats); pool.child / pool.value are updated in place."""
+    cap = pool.capacity
+    U = unique_cap
+    dev = pool.child.device
+    keys = keys.to(torch.int32)
+    values = values.to(torch.int32)
+    key_valid = (keys >= 0) & (keys != morton.INVALID_KEY)
+    if min_key is not None:
+        key_valid = key_valid & (keys > min_key)
+    k = torch.where(key_valid, keys, morton.INVALID_KEY)
+    skeys, order = torch.sort(k, stable=True)
+    svals = values[order]
+    svalid = skeys != morton.INVALID_KEY
+    first = compaction.first_occurrence(skeys, svalid)
+    (ukeys, uvals), _ = compaction.compact_multi([skeys, svals], first, U)
+    u_count = first.sum(dtype=torch.int32)
+    rows = torch.arange(U, device=dev)
+    ukeys = torch.where(rows < u_count, ukeys, morton.INVALID_KEY)
+    ulive = (rows < u_count) & (ukeys != morton.INVALID_KEY)
+
+    n_nodes, paths, reached, n_new, shallow = _descend_alloc(
+        pool.child, pool.n_nodes, ukeys, ulive, cap=cap, depth=depth,
+        shallow_level=shallow_level)
+    cur = paths[-1]
+    leaf_ok = ulive & reached[-1]
+    old = pool.value[cur]
+    is_new_leaf = leaf_ok & (old == packing.EMPTY_VALUE)
+    write_ok = leaf_ok if overwrite else is_new_leaf
+    compaction.scatter_set_(pool.value, torch.where(write_ok, cur, cap),
+                            uvals)
+    final_vals = torch.where(write_ok, uvals, old)
+    new_leaf_keys, nl_count = compaction.compact(ukeys, is_new_leaf, U,
+                                                 fill=-1)
+    new_leaf_nodes, _ = compaction.compact(cur, is_new_leaf, U, fill=0)
+
+    unique_overflow = u_count > U
+    pool_overflowed = pool.overflowed | (n_nodes + 8 > cap)
+    last_idx = torch.clamp(torch.clamp(u_count, max=U) - 1, 0, U - 1)
+    stats = InsertStats(
+        new_nodes=8 * n_new,
+        n_valid=key_valid.sum(dtype=torch.int32),
+        n_unique=torch.clamp(u_count, max=U),
+        overflowed=pool_overflowed | unique_overflow,
+        unique_overflow=unique_overflow,
+        last_key=ukeys[last_idx.reshape(1)].reshape(()),
+        shallow_allocs=shallow,
+        # constants of the bulk write: no directory, no gate transitions
+        # (pool rebuilds rebuild the mask from the registry), no mirror pairs
+        dir_hits=torch.full((), -1, dtype=torch.int32, device=dev),
+        hit_aux=torch.full((U,), -1, dtype=torch.int32, device=dev),
+        new_leaf_keys=new_leaf_keys,
+        new_leaf_nodes=new_leaf_nodes,
+        new_leaf_count=nl_count,
+        touched_leaf_nodes=torch.where(leaf_ok, cur, -1),
+        touched_leaf_keys=torch.where(leaf_ok, ukeys, morton.INVALID_KEY),
+        touched_leaf_vals=final_vals,
+        sat_transition=torch.zeros((U,), dtype=torch.bool, device=dev),
+        mip_idx=torch.full((1,), 2**31 - 1, dtype=torch.int32, device=dev),
+        mip_val=torch.zeros((1,), dtype=torch.int32, device=dev),
+    )
+    return pool._replace(n_nodes=n_nodes, overflowed=pool_overflowed), stats
+
+
+def _reroot_dense_map(pre: int):
+    """Host index maps of one volume doubling: Octree::expand wraps child i
+    in a new parent at ~i (octree.cpp:184-206), so an old cell [i, rest]
+    at level l becomes [i, ~i, rest] at level l+1. Returns (src i64[dense],
+    valid bool[dense]): new dense node d takes old dense node src[d]'s
+    value where valid; level 1 is invalid (re-mipmapped afterwards)."""
+    dense = _LEVEL_BASE[pre + 1]
+    src = np.zeros((dense,), np.int64)
+    valid = np.zeros((dense,), bool)
+    for l in range(2, pre + 1):
+        base = _LEVEL_BASE[l]
+        m = np.arange(_LEVEL_BASE[l + 1] - base, dtype=np.int64)
+        s = 3 * (l - 2)
+        i1 = m >> (s + 3)
+        ok = ((m >> s) & 7) == (i1 ^ 7)
+        m_old = (i1 << s) | (m & ((1 << s) - 1))
+        src[base + m] = np.where(ok, _LEVEL_BASE[l - 1] + m_old, 0)
+        valid[base + m] = ok
+    return src, valid
+
+
+def reroot_double(pool: SVONodePool) -> SVONodePool:
+    """Double the volume (half_size x2, one level deeper) keeping every
+    node value and child pointer, in place (Octree::expand,
+    octree.cpp:184-206): the dense shallow values are permuted ([i] ->
+    [i, ~i]), the old dense level-`pre` nodes move verbatim into one bridge
+    block of 8^pre slots at the allocation cursor (their child pointers
+    still address the same unmoved tiles), and level 1 is re-mipmapped.
+    No node outside the dense region moves.
+
+    Needs 8^pre free slots: when they do not fit (one host read) the pool
+    only gets its `overflowed` flag, as the reference package's result."""
+    cap = pool.capacity
+    pre = prealloc_levels(cap)
+    if pre < 2:
+        raise ValueError(f"reroot_double needs >= 2 dense levels, capacity "
+                         f"{cap} has {pre}")
+    dense = _LEVEL_BASE[pre + 1]
+    lo_pre = _LEVEL_BASE[pre]
+    n_bridge = dense - lo_pre     # 8^pre nodes
+    base = int(pool.n_nodes)
+    if base + n_bridge > cap:
+        return pool._replace(overflowed=torch.ones_like(pool.overflowed))
+    dev = pool.value.device
+    src_np, valid_np = _reroot_dense_map(pre)
+    new_dense = torch.where(torch.from_numpy(valid_np).to(dev),
+                            pool.value[torch.from_numpy(src_np).to(dev)],
+                            packing.EMPTY_VALUE)
+    new_dense[:8] = _mipmap_tiles(
+        new_dense[_LEVEL_BASE[2]:_LEVEL_BASE[3]].view(8, 8))
+
+    # the bridge block: the old dense level-`pre` rows, verbatim
+    pool.value[base:base + n_bridge] = pool.value[lo_pre:dense]
+    pool.child[base:base + n_bridge] = pool.child[lo_pre:dense]
+    # dense level-`pre` cell m = [i1, ~i1, p_rest] covers old level-(pre-1)
+    # cell p = [i1, p_rest], whose children are bridge tile base + 8p
+    m = torch.arange(n_bridge, dtype=torch.int32, device=dev)
+    s = 3 * (pre - 2)
+    i1 = m >> (s + 3)
+    covered = ((m >> s) & 7) == (i1 ^ 7)
+    p = (i1 << s) | (m & ((1 << s) - 1))
+    pool.value[:dense] = new_dense
+    pool.child[lo_pre:dense] = torch.where(covered, base + 8 * p, 0)
+    return pool._replace(n_nodes=pool.n_nodes + n_bridge,
+                         half_size=pool.half_size * 2.0)
+
+
+def grow_capacity(pool: SVONodePool, new_capacity: int) -> SVONodePool:
+    """The pool at a larger capacity (the reference's per-insert realloc,
+    svo.cu:609-614, once per doubling). Child pointers are absolute and the
+    dense layout depends only on prealloc_levels(capacity), so within one
+    prealloc schedule a pad keeps the whole structure; across a boundary
+    the callers rebuild through insert_exact."""
+    cap = pool.capacity
+    assert new_capacity >= cap and new_capacity % 8 == 0
+    assert prealloc_levels(new_capacity) == prealloc_levels(cap), \
+        "growth across a prealloc-level boundary needs a rebuild " \
+        "(pipeline.grow_state and Octree.grow_capacity rebuild through " \
+        "insert_exact)"
+    pad = new_capacity - cap
+    if pad == 0:
+        return pool
+    return pool._replace(
+        child=torch.cat([pool.child, pool.child.new_zeros((pad,))]),
+        value=torch.cat([pool.value,
+                         pool.value.new_full((pad,), packing.EMPTY_VALUE)]),
+        overflowed=torch.zeros_like(pool.overflowed))
+
+
+class ExtractedVoxels(NamedTuple):
+    keys: torch.Tensor     # i32[cap] leaf Morton keys, -1 past count
+    nodes: torch.Tensor    # i32[cap] node-pool indices, -1 past count
+    centers: torch.Tensor  # f32[cap, 3] world-space cell centres
+    colors: torch.Tensor   # f32[cap, 4] rgba in [0, 1]
+    count: torch.Tensor    # i32[] live entries
+
+
+def extract_voxels(pool: SVONodePool, *, depth: int,
+                   capacity: int) -> ExtractedVoxels:
+    """The occupied (alpha > 127) cells at `depth` by a frontier BFS:
+    extractVoxelGridFromSVO's per-level getOccupiedChildren +
+    thrust::remove_if (svo.cu:699-745) as masked expansion and prefix-sum
+    compaction into a `capacity`-row buffer (>= 8). No host read."""
+    cap = pool.capacity
+    dev = pool.child.device
+    eight = torch.arange(8, dtype=torch.int32, device=dev)
+    node = torch.full((capacity,), cap, dtype=torch.int32, device=dev)
+    key = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+    node[:8] = eight
+    key[:8] = eight
+    live = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    live[:8] = packing.is_occupied(pool.value[:8])
+    rows = torch.arange(capacity, device=dev)
+    for _ in range(depth - 1):
+        tile = torch.where(live, pool.child[torch.clamp(node, max=cap - 1)],
+                           0)
+        has_kids = live & (tile > 0)
+        kid_nodes = (tile[:, None] + eight).reshape(-1)
+        kid_keys = ((key[:, None] << 3) | eight).reshape(-1)
+        kid_occ = packing.is_occupied(
+            pool.value[torch.clamp(kid_nodes, max=cap - 1)])
+        mask = has_kids.repeat_interleave(8) & kid_occ
+        (node, key), count = compaction.compact_multi(
+            [kid_nodes, kid_keys], mask, capacity)
+        live = rows < count
+
+    centers = morton.decode_centers(key, pool.center, pool.half_size, depth)
+    colors = packing.unpack_rgba_unit(pool.value[torch.where(live, node, 0)])
+    return ExtractedVoxels(
+        keys=torch.where(live, key, -1),
+        nodes=torch.where(live, node, -1),
+        centers=torch.where(live[:, None], centers, 0.0),
+        colors=torch.where(live[:, None], colors, 0.0),
+        count=live.sum(dtype=torch.int32))
+
+
+def extract_all_leaves(pool: SVONodePool, *, depth: int,
+                       start_capacity: int):
+    """extract_voxels at a capacity doubled until every occupied leaf fits,
+    one host read of the count per try. Returns (extraction, capacity)."""
+    cap = max(start_capacity, 8)
+    while True:
+        ex = extract_voxels(pool, depth=depth, capacity=cap)
+        if int(ex.count) < cap:
+            return ex, cap
+        cap *= 2
+
+
+def query_points(pool: SVONodePool, points: torch.Tensor, *, depth: int):
+    """The deepest existing node containing each point (fillNodes' walk,
+    svo.cu:352-364, without mutation). Returns (value i32[N], reached
+    depth i32[N])."""
+    keys, valid = morton.encode(points, pool.center, pool.half_size, depth)
+    cur = torch.where(valid, morton.octant_at(keys, depth, 1), 0)
+    reached = valid.to(torch.int32)
+    for level in range(1, depth):
+        tile = pool.child[cur]
+        go = valid & (tile > 0)
+        cur = torch.where(go, tile + morton.octant_at(keys, depth, level + 1),
+                          cur)
+        reached = torch.where(go, level + 1, reached)
+    return pool.value[cur], reached

@@ -51,6 +51,9 @@ exit tests every raycast.EXIT_CHECK_EVERY trips; the hybrid's band march
 has a fixed trip count and reads nothing. So splat, slab-cone and "none"
 frames take one read, a lazy hybrid frame two.
 
+`grow_state` doubles the node pool and/or the leaf registry between
+frames (the app loop's growth policy).
+
 `check_supported` raises where the reference raises (the hybrid without
 the dense mirror) or would silently render black (an unknown render), and
 for the four band knobs of the hybrid that are not ported (see
@@ -59,6 +62,7 @@ render/hybrid.py).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Tuple
 
@@ -74,6 +78,7 @@ from octree_slam_tpu_torch.render import conesplat, hybrid, raycast
 from octree_slam_tpu_torch.render.splat import (LeafList,
                                                 append_new_leaves_cached,
                                                 create_leaf_list,
+                                                leaf_list_from_extraction,
                                                 render_splat)
 from octree_slam_tpu_torch.sensor import tracking
 from octree_slam_tpu_torch.utils import compaction
@@ -291,6 +296,68 @@ def reset_dircache(state: SLAMState) -> SLAMState:
         dir_nodes=torch.full_like(state.dir_nodes, -1),
         dir_vals=torch.zeros_like(state.dir_vals),
         dir_pos=torch.full_like(state.dir_pos, -1))
+
+
+def grow_state(state: SLAMState, cfg: SLAMConfig, *,
+               grow_nodes: bool = True,
+               grow_leaves: bool = False) -> Tuple[SLAMState, SLAMConfig]:
+    """Double the node pool and/or the leaf registry, keeping all content
+    (the reference reallocs per insert, svo.cu:609-614). Three ways:
+    within one prealloc schedule the pool pads (node indices are
+    absolute); a node doubling that crosses a prealloc boundary rebuilds
+    the pool from its exact leaf set (map/tiering); a registry that
+    overflowed is rebuilt from an extraction of the pool, so that the
+    leaves its appends dropped are registered. Returns (state, cfg)."""
+    from octree_slam_tpu_torch.map import tiering
+    new_cfg = dataclasses.replace(
+        cfg,
+        node_capacity=cfg.node_capacity * (2 if grow_nodes else 1),
+        leaf_capacity=cfg.leaf_capacity * (2 if grow_leaves else 1))
+    if grow_nodes and (svo.prealloc_levels(new_cfg.node_capacity)
+                       != svo.prealloc_levels(cfg.node_capacity)):
+        # a pad cannot keep the shallow dense layout: rebuild the pool from
+        # the exact leaf words (insert_exact reproduces every one)
+        pool0, keys, vals = tiering._leaf_snapshot(state, cfg)
+        state = state._replace(pool=pool0, interior_stale=_flag(
+            False, pool0.child.device))
+        fresh = svo.create(new_cfg.node_capacity, pool0.center,
+                           pool0.half_size, device=pool0.child.device)
+        fresh, _ = tiering._insert_all_exact(fresh, keys, vals, new_cfg,
+                                             overwrite=True)
+        return tiering._rebuild_derived(state, new_cfg, fresh)
+    pool = (svo.grow_capacity(state.pool, new_cfg.node_capacity)
+            if grow_nodes else state.pool)
+
+    leaves = state.leaves
+    if bool(leaves.overflowed):
+        # the extraction's BFS reads interior occupancy: refresh first if
+        # lazy frames deferred it
+        if bool(state.interior_stale):
+            pool = svo.refresh_interior(pool, depth=cfg.max_depth)
+        ex, cap = svo.extract_all_leaves(
+            pool, depth=new_cfg.max_depth,
+            start_capacity=new_cfg.leaf_capacity)
+        new_cfg = dataclasses.replace(new_cfg, leaf_capacity=cap)
+        leaves = leaf_list_from_extraction(
+            ex, pool.value, node_capacity=new_cfg.node_capacity)
+        # registry positions just changed under the directory's dir_pos
+        state = reset_dircache(state)
+    else:
+        lc_pad = new_cfg.leaf_capacity - leaves.keys.shape[0]
+        nc_pad = new_cfg.node_capacity - leaves.node2pos.shape[0]
+        if lc_pad or nc_pad:
+            leaves = leaves._replace(
+                keys=torch.cat([leaves.keys,
+                                leaves.keys.new_full((lc_pad,), -1)]),
+                nodes=torch.cat([leaves.nodes,
+                                 leaves.nodes.new_zeros((lc_pad,))]),
+                vals=torch.cat([leaves.vals,
+                                leaves.vals.new_zeros((lc_pad,))]),
+                node2pos=torch.cat([leaves.node2pos,
+                                    leaves.node2pos.new_full((nc_pad,), -1)]))
+    # the render cache does not depend on capacity: the mirror is sized by
+    # max_depth, and an entry grid holds node indices, which a pad keeps
+    return state._replace(pool=pool, leaves=leaves), new_cfg
 
 
 def heal_for_march(state: SLAMState, cfg: SLAMConfig):

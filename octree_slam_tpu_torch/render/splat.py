@@ -9,9 +9,10 @@ quantized-depth<<16 | RGB565 into one int32 per leaf and resolves
 visibility and colour together with one scatter-min, then fills 1-2 pixel
 holes with a 3x3 min dilation.
 
-Left for later: the registry rebuild from an extraction. The registry's
-tensors are updated in place by `append_new_leaves` and
-`append_new_leaves_cached`.
+`leaf_list_from_extraction` rebuilds the registry from an extraction of
+the pool (growth after an overflow, tiering, rebuilds across a prealloc
+boundary). The registry's tensors are updated in place by
+`append_new_leaves` and `append_new_leaves_cached`.
 """
 
 from __future__ import annotations
@@ -53,6 +54,25 @@ def create_leaf_list(capacity: int, node_capacity: int,
         count=torch.zeros((), **i32),
         overflowed=torch.tensor(False, device=device),
     )
+
+
+def leaf_list_from_extraction(ex, pool_value: torch.Tensor, *,
+                              node_capacity: int) -> LeafList:
+    """A whole registry from an svo.extract_all_leaves result, for when node
+    indices changed or appends were dropped: the append-only registry is
+    rebuilt from the pool itself."""
+    capacity = ex.keys.shape[0]
+    live = ex.nodes >= 0
+    nodes = torch.where(live, ex.nodes, 0)
+    node2pos = torch.full((node_capacity,), -1, dtype=torch.int32,
+                          device=nodes.device)
+    scatter_set_(node2pos, torch.where(live, nodes, node_capacity),
+                 torch.arange(capacity, dtype=torch.int32,
+                              device=nodes.device))
+    return LeafList(keys=ex.keys, nodes=nodes,
+                    vals=torch.where(live, pool_value[nodes], 0),
+                    node2pos=node2pos, count=ex.count,
+                    overflowed=ex.count >= capacity)
 
 
 def append_new_leaves(leaves: LeafList, stats: InsertStats) -> LeafList:
@@ -136,15 +156,15 @@ def dilate_zbuffer(buf: torch.Tensor, *, width: int, height: int,
                    rounds: int = 2) -> torch.Tensor:
     """Image-space hole filling: EMPTY pixels take the min (= nearest)
     packed word of their 3x3 neighbourhood, `rounds` times; outside the
-    image counts as EMPTY."""
-    img = buf.reshape(height, width)
+    image counts as EMPTY. buf is [..., H*W]; returns [..., H, W]."""
+    img = buf.reshape(buf.shape[:-1] + (height, width))
     for _ in range(rounds):
         pad = F.pad(img, (1, 1, 1, 1), value=EMPTY)
         best = img
         for dy in range(3):
             for dx in range(3):
-                best = torch.minimum(best,
-                                     pad[dy:dy + height, dx:dx + width])
+                best = torch.minimum(
+                    best, pad[..., dy:dy + height, dx:dx + width])
         img = torch.where(img == EMPTY, best, img)
     return img
 

@@ -12,7 +12,8 @@ PyTorch versions (counterpart: octree_slam_tpu/sensor/pallas_ops.py).
 Dispatch is by the tensor's device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel (building it on first use) or raises;
 nothing falls back from one to the other. `LAUNCHES` counts kernel
-launches, so a run can show that its path went through the kernels.
+launches, so a run can show that its path went through the kernels, and
+`LAUNCH_BATCHES` counts them by the batch each launch took.
 
 The TPU kernel's VMEM striping and full-resolution-then-decimate form are
 not carried over: the subsample computes only the pixels it keeps.
@@ -29,6 +30,8 @@ from octree_slam_tpu_torch import _build
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"bilateral7x7": 0, "gated_pyramid5x5": 0}
+# kernel name -> {batch size: launches} since the last reset_launches()
+LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 # pyramid levels one gated_pyramid5x5 launch makes
 MAX_PYRAMID_LEVELS = 2
 
@@ -36,6 +39,7 @@ MAX_PYRAMID_LEVELS = 2
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_BATCHES[k].clear()
 
 
 def bilateral_plain(depth: torch.Tensor, sigma_spatial: float,
@@ -129,6 +133,8 @@ def _launch(kernel: str, x: torch.Tensor, *args) -> None:
             err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, kernel)
     LAUNCHES[kernel] += 1
+    batches = LAUNCH_BATCHES[kernel]
+    batches[x.shape[0]] = batches.get(x.shape[0], 0) + 1
 
 
 def bilateral(depth: torch.Tensor, sigma_spatial: float,

@@ -41,7 +41,13 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
     """Bilateral filter + intensity + per-level vertex/normal maps
     (rgbd_camera.cpp:61-93). Level 0 is full resolution; levels finer than
     every consumer (track_finest_level, fuse_level) carry 1x1 INF
-    placeholders like the reference package."""
+    placeholders like the reference package.
+
+    depth_mm may carry a leading batch [B, H, W] (color [B, H, W, 3]):
+    then every map has it too, and the batch still takes one bilateral
+    launch and one gated-pyramid launch. Relocalization builds its K
+    candidates' pyramids that way, where the reference package maps one
+    build over them."""
     filtered = image_ops.bilateral_filter(
         depth_mm, kernel_size=cfg.bilateral_kernel_size,
         sigma_spatial=cfg.bilateral_sigma_spatial,
@@ -58,8 +64,9 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
                 d, cfg.focal_x, cfg.focal_y, (cfg.width, cfg.height))
             normal = image_ops.generate_normal_map(vertex)
         else:
-            vertex = torch.full((1, 1, 3), torch.inf, device=d.device)
-            normal = torch.full((1, 1, 3), torch.inf, device=d.device)
+            vertex = torch.full(d.shape[:-2] + (1, 1, 3), torch.inf,
+                                device=d.device)
+            normal = torch.full_like(vertex, torch.inf)
         levels.append(PyramidLevel(vertex=vertex, normal=normal,
                                    intensity=inten))
         if i != cfg.pyramid_depth - 1:

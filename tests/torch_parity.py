@@ -199,3 +199,44 @@ def assert_leaf_level_equal(tcache, jcache, max_depth, what=""):
     stamps, `occ` and `dist`."""
     assert_mirror_equal(tcache, jcache, what,
                         lo=((1 << (3 * max_depth)) - 8) // 7)
+
+
+def np_state(state):
+    """A JAX state with numpy leaves (what convert.state_from_numpy reads)."""
+    import jax
+    return jax.tree_util.tree_map(np.asarray, state)
+
+
+def assert_state_equal(tstate, jstate, where="", pose_atol=1e-4):
+    """A port state against a JAX one: the pool, the leaf registry, the
+    render cache, the saturation mask, the directory cache and the flags
+    bit for bit; the pose within `pose_atol`."""
+    def eq(t, j, name):
+        j = np.asarray(j)
+        np.testing.assert_array_equal(
+            words(t) if j.dtype == np.uint32 else t.numpy(), j,
+            err_msg=f"{where} {name}")
+    for name in ("child", "value", "n_nodes", "overflowed", "center",
+                 "half_size"):
+        eq(getattr(tstate.pool, name), getattr(jstate.pool, name),
+           f"pool.{name}")
+    for name in ("keys", "nodes", "vals", "node2pos", "count", "overflowed"):
+        eq(getattr(tstate.leaves, name), getattr(jstate.leaves, name),
+           f"leaves.{name}")
+    for name in type(tstate.accel)._fields:
+        eq(getattr(tstate.accel, name), getattr(jstate.accel, name),
+           f"accel.{name}")
+    for name in ("sat_mask", "dir_keys", "dir_nodes", "dir_vals", "dir_pos",
+                 "interior_stale", "mirror_stale", "stamps_stale",
+                 "diverged", "initialized", "frame_idx"):
+        eq(getattr(tstate, name), getattr(jstate, name), name)
+    np.testing.assert_allclose(tstate.pose.numpy(), np.asarray(jstate.pose),
+                               atol=pose_atol, err_msg=f"{where} pose")
+
+
+def orbit_port_frames(stream, device=DEVICE):
+    """A numpy stream (orbit_frames) as port Frames."""
+    from octree_slam_tpu_torch import convert
+    depth, color, _ = stream
+    return [convert.frame_from_numpy(depth[i], color[i], device=device)
+            for i in range(depth.shape[0])]
