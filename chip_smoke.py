@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile cone         # ... one slab-cone frame
     python3 chip_smoke.py --profile cone_march   # ... one exact-march frame
     python3 chip_smoke.py --profile cone_hybrid  # ... one hybrid frame
+    python3 chip_smoke.py --profile offline      # ... the offline calls
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: a CUDA card of compute capability 9.0, strict float32 matmuls;
@@ -63,7 +64,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      per attempt);
  16. tum: a 14-frame 640x480 TUM-format sequence written by the port and
      replayed through its CLI, with slam_fps (frames staged on the card)
-     and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder).
+     and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder);
+ 17. offline, at the reference's full size: an in-code mesh of 100,000
+     triangles with a 256x256 texture, written and read back through the
+     port's OBJ and BMP code and Scene; the 256^3 voxel grid twice (equal
+     word for word), its occupied set against the A-buffer's, THIN inside
+     CONSERVATIVE; a reduced mesh card against CPU (grid, A-buffer and a
+     rasterization of its voxel cubes, whose faces tie in depth, word for
+     word); the grid into the octree with a 640x480 cone trace, a 640x480
+     textured rasterization, the voxel view as splats and as cubes; and
+     the CLI's --save-mesh after the orbit (8 vertices and 12 faces a
+     leaf). These paths reach no hand kernel; only the CLI's orbit
+     launches the two stencils.
 Every orbit starts with the kernels' launch counts at 0 and must find each
 kernel launched once per frame (plus one batched launch per recovery
 attempt). The last lines are the card's name and
@@ -1261,12 +1273,338 @@ def phase_tum(smi: str):
     return launches
 
 
+def _uv_surface(pos_fn, nrm_fn, nu: int, nv: int, u_max: float,
+                v_max: float):
+    """A parametric surface as a (nu+1) x (nv+1) vertex grid (the seam
+    repeated, so each vertex has one uv) and 2 * nu * nv triangles."""
+    u = np.linspace(0.0, u_max, nu + 1)
+    v = np.linspace(0.0, v_max, nv + 1)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    verts = pos_fn(uu, vv).reshape(-1, 3)
+    nrms = nrm_fn(uu, vv).reshape(-1, 3)
+    uv = np.stack([uu / u_max, vv / v_max], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = (i * (nv + 1) + j).reshape(-1)
+    b, c, e = a + nv + 1, a + nv + 2, a + 1
+    faces = np.concatenate([np.stack([a, b, c], -1), np.stack([a, c, e], -1)])
+    return verts, nrms, uv, faces
+
+
+def offline_mesh(n_sphere, n_torus):
+    """A UV sphere beside a torus, built in code: f32 vertices, normals,
+    per-corner uv and i32 faces; 2 * nu * nv triangles each."""
+    def sphere(t, p):
+        return np.stack([np.sin(p) * np.cos(t), np.cos(p),
+                         np.sin(p) * np.sin(t)], -1)
+
+    def torus(t, p):
+        ring = 0.34 + 0.14 * np.cos(p)
+        return np.stack([ring * np.cos(t), 0.14 * np.sin(p),
+                         ring * np.sin(t)], -1)
+
+    def torus_n(t, p):
+        return np.stack([np.cos(p) * np.cos(t), np.sin(p),
+                         np.cos(p) * np.sin(t)], -1)
+
+    sv, sn, suv, sf = _uv_surface(lambda t, p: 0.42 * sphere(t, p)
+                                  + [-0.48, 0.0, 0.0], sphere,
+                                  *n_sphere, 2 * np.pi, np.pi)
+    tv, tn, tuv, tf = _uv_surface(lambda t, p: torus(t, p) + [0.52, 0.05,
+                                                              0.1],
+                                  torus_n, *n_torus, 2 * np.pi, 2 * np.pi)
+    verts = np.concatenate([sv, tv]).astype(np.float32)
+    faces = np.concatenate([sf, tf + len(sv)]).astype(np.int32)
+    uv = np.concatenate([suv, tuv]).astype(np.float32)
+    return (verts, np.concatenate([sn, tn]).astype(np.float32), faces,
+            uv[faces])
+
+
+def _checker(size=256, block=32):
+    y, x = np.mgrid[:size, :size]
+    on = ((x // block + y // block) % 2).astype(bool)
+    rgb = np.stack([np.where(on, 230, 40 + x // 2), np.where(on, 60, 200),
+                    np.where(on, 30 + y // 2, 90)], -1)
+    return rgb.astype(np.uint8)
+
+
+def _write_assets(d, name, n_sphere, n_torus):
+    """The mesh through the port's save_obj (with its texcoords) and the
+    checker through its BMP writer; returns (obj path, bmp path, faces)."""
+    from octree_slam_tpu_torch.core.types import BoundingBox, Mesh
+    from octree_slam_tpu_torch.io import bmp, obj
+    v, n, f, uv = offline_mesh(n_sphere, n_torus)
+    t = torch.from_numpy
+    mesh = Mesh(t(v), t(n), t(np.ones_like(v)), t(f), t(uv),
+                BoundingBox(t(v.min(0)), t(v.max(0))))
+    paths = (os.path.join(d, f"{name}.obj"), os.path.join(d, f"{name}.bmp"))
+    obj.save_obj(paths[0], mesh, with_texcoords=True)
+    bmp.save_bmp(paths[1], _checker())
+    return paths[0], paths[1], len(f)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _profile_call(tag, smi, fn, wall_ms):
+    """torch.profiler over one call of fn (after one warm call): device
+    busy time, kernel count, the device's idle share against `wall_ms`
+    (the call's time without the profiler), the host's launch calls and
+    the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if getattr(e, "device_type", None) == cuda]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launch = sum(e.cpu_time_total for e in events
+                 if e.key == "cudaLaunchKernel") / 1e3
+    # float64 work of utils/fma.py: the kernels instantiated for double
+    # (its products and sums, and the casts into float64; the casts back
+    # to float32 are instantiated for float and are not in this sum)
+    f64 = [e for e in kernels if "double" in e.key]
+    f64_ms = sum(e.self_device_time_total for e in f64) / 1e3
+    print(f"{tag} {smi} | device busy {busy:.3f} ms, "
+          f"{sum(e.count for e in kernels)} kernels | call without the "
+          f"profiler {wall_ms:.3f} ms, so the device is idle "
+          f"{100 * (1 - busy / wall_ms):.1f}% of it | cudaLaunchKernel "
+          f"{launch:.3f} ms host | float64 kernels {f64_ms:.3f} ms "
+          f"x{sum(e.count for e in f64)}, {100 * f64_ms / busy:.1f}% of "
+          f"the busy time")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"{tag}   kernel {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<5d} {e.key[:80]}")
+
+
+def _count_obj(path):
+    nv = nf = 0
+    with open(path) as f:
+        for line in f:
+            nv += line.startswith("v ")
+            nf += line.startswith("f ")
+    return nv, nf
+
+
+def phase_offline(smi: str, profile=None):
+    """Phase 17: the offline paths at the reference's full size. An in-code
+    sphere and torus of 100,000 triangles with a 256x256 checker, written
+    with the port's OBJ and BMP writers and read back through Scene; the
+    256^3 grid (budget 512) twice, word for word the same, its occupied
+    set equal to the A-buffer's, THIN inside CONSERVATIVE; a reduced mesh
+    (2,048 triangles, 64^3) card against CPU, grid, A-buffer and a 160x120
+    rasterization of its voxel cubes, word for word; the grid into the
+    octree, a 640x480 cone trace of it and a 640x480 textured
+    rasterization of the mesh; the voxel view as splats and as cubes; and
+    the CLI's --save-mesh after the 14-frame orbit, 8 vertices and 12
+    faces a leaf."""
+    from octree_slam_tpu_torch import SLAMConfig, app
+    from octree_slam_tpu_torch.core import camera
+    from octree_slam_tpu_torch.map import morton
+    from octree_slam_tpu_torch.map import voxelization as vox
+    from octree_slam_tpu_torch.render import raster
+    from octree_slam_tpu_torch.render.renderer import Renderer
+    from octree_slam_tpu_torch.scene import Scene
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        full_obj, full_bmp, n_tri = _write_assets(d, "full", (250, 100),
+                                                  (250, 100))
+        small_obj, small_bmp, n_small = _write_assets(d, "small", (32, 16),
+                                                      (32, 16))
+        check(n_tri == 100_000 and n_small == 2_048,
+              f"[offline] meshes of {n_tri} / {n_small} triangles")
+        cfg = SLAMConfig(vox_log_n=8, vox_tri_budget=512,
+                         extract_capacity=1 << 20, node_capacity=1 << 21)
+        scene = Scene(cfg, device="cuda")
+        mesh = scene.load_obj_file(full_obj)
+        tex = scene.load_texture(full_bmp)
+        check(mesh.faces.shape[0] == n_tri, "[offline] the OBJ read back "
+              f"with {mesh.faces.shape[0]} faces")
+        lo, hi = mesh.bbox
+        kw = dict(log_n=8, tri_budget=512)
+        torch.cuda.reset_peak_memory_stats()
+        soup, rec["prepare_ms"] = _timed(
+            lambda: vox.prepare_mesh(mesh, mesh.bbox, 8, 512))
+        grids, times = [], []
+        for _ in range(2):
+            g, ms = _timed(lambda: vox.voxelize(soup, tex.data, lo, hi, **kw))
+            grids.append(g)
+            times.append(ms)
+        rec["voxelize_ms"] = times
+        rec["voxelize_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        check(torch.equal(grids[0], grids[1]),
+              "[offline] two voxelizations of the 256^3 grid differ")
+        if profile == "offline":
+            _profile_call("[profile offline voxelize]", smi,
+                          lambda: vox.voxelize(soup, tex.data, lo, hi, **kw),
+                          times[-1])
+        grid = grids.pop()
+        occ = grid.reshape(-1) != 0
+        rec["occupied_voxels"] = int(occ.sum())
+        cons, rec["voxelize_conservative_ms"] = _timed(
+            lambda: vox.voxelize(soup, tex.data, lo, hi, conservative=True,
+                                 **kw))
+        rec["occupied_conservative"] = int((cons != 0).sum())
+        check(not bool((occ & (cons.reshape(-1) == 0)).any()),
+              "[offline] a THIN voxel is not in the CONSERVATIVE grid")
+        del cons
+        ab, rec["abuffer_ms"] = _timed(lambda: vox.voxelize_abuffer(
+            soup, lo, hi, capacity=1 << 23, **kw))
+        rec["abuffer_fragments"] = int(ab.count)
+        if profile == "offline":
+            _profile_call("[profile offline abuffer]", smi,
+                          lambda: vox.voxelize_abuffer(
+                              soup, lo, hi, capacity=1 << 23, **kw),
+                          rec["abuffer_ms"])
+        check(not bool(ab.overflowed), "[offline] the A-buffer overflowed")
+        ab_set = torch.unique_consecutive(ab.frag_voxel[:int(ab.count)])
+        check(torch.equal(ab_set, torch.nonzero(occ).squeeze(1)
+                          .to(torch.int32)),
+              "[offline] the A-buffer's occupied set is not the grid's")
+        del ab, ab_set, grid, grids, soup
+        lists = []
+        for _ in range(2):
+            g, ms = _timed(lambda: scene.voxelize_meshes(octree=False))
+            lists.append(g)
+            rec.setdefault("voxelize_meshes_ms", []).append(ms)
+        check(all(torch.equal(a, b) for a, b in zip(lists[0][:3],
+                                                    lists[1][:3]))
+              and int(lists[0].count) == rec["occupied_voxels"],
+              "[offline] voxelize_meshes is not deterministic or lost cells")
+        del lists
+
+        # the reduced mesh: card against CPU, word for word
+        words = []
+        for dev in ("cpu", "cuda"):
+            s = Scene(dataclasses.replace(cfg, vox_log_n=6), device=dev)
+            m = s.load_obj_file(small_obj)
+            t = s.load_texture(small_bmp)
+            sp = vox.prepare_mesh(m, m.bbox, 6, 512)
+            g = vox.voxelize(sp, t.data, *m.bbox, log_n=6, tri_budget=512)
+            a = vox.voxelize_abuffer(sp, *m.bbox, log_n=6, tri_budget=512,
+                                     capacity=1 << 17)
+            cubes = vox.voxel_grid_to_mesh(s.voxelize_meshes())
+            mvp = camera.make_camera((0.2, 1.1, 2.6), (0.0, 0.0, 0.0),
+                                     (0.0, 1.0, 0.0), 50.0, 4 / 3,
+                                     device="cpu").mvp
+            fb = raster.rasterize(raster.assemble(cubes), mvp.to(dev),
+                                  width=160, height=120, frag_budget=64,
+                                  shading="color", cull_backfaces=False)
+            words.append([g, *a, fb])
+        cpu, card = ([x.cpu() for x in w] for w in words)
+        names = ["grid", "frag_voxel", "frag_tri", "count", "overflowed",
+                 "raster"]
+        rec["reduced_card_vs_cpu_differing"] = {
+            n: int((a != b).sum()) for n, a, b in zip(names, cpu, card)}
+        rec["reduced_occupied"] = int((cpu[0] != 0).sum())
+        rec["reduced_raster_covered"] = int(cpu[-1][..., 3].sum())
+        check(all(v == 0 for v in
+                  rec["reduced_card_vs_cpu_differing"].values()),
+              "[offline] card and CPU differ on the reduced mesh: "
+              f"{rec['reduced_card_vs_cpu_differing']}")
+        check(rec["reduced_raster_covered"] > 1000,
+              "[offline] the cube raster covers too little")
+
+        # into the octree, then the views at 640x480
+        vg, rec["voxelize_and_insert_ms"] = _timed(
+            lambda: scene.voxelize_meshes(octree=True))
+        rec["octree_voxels"] = int(vg.count)
+        rec["octree_depth"] = scene.tree.max_depth
+        # each occupied grid cell lands in the leaf holding its centre
+        # (several cells may share one: the grid's cells are not cubes)
+        g = scene.voxelize_meshes()
+        keys, _ = morton.encode(g.centers[:int(g.count)],
+                                scene.tree.pool.center,
+                                scene.tree.pool.half_size,
+                                scene.tree.max_depth)
+        rec["octree_leaves_expected"] = int(torch.unique(keys).numel())
+        check(rec["octree_voxels"] == rec["octree_leaves_expected"],
+              f"[offline] the octree holds {rec['octree_voxels']} voxels, "
+              f"expected {rec['octree_leaves_expected']}")
+        scene.voxel_grid = vg
+        r = Renderer(640, 480)
+        pose = torch.eye(4, device="cuda")
+        pose[:3, 3] = torch.tensor([0.0, 0.0, -2.4])
+        for _ in range(2):
+            fb, ms = _timed(lambda: r.cone_trace_svo(
+                scene.svo(), pose, 525.0, 525.0, scene.tree.max_depth))
+            rec.setdefault("cone_trace_ms", []).append(ms)
+        rec["cone_trace_coverage"] = float(
+            (fb[..., :3].amax(-1) > 0).float().mean())
+        cam = camera.make_camera((0.3, 0.9, 2.2), (0.0, 0.0, 0.0),
+                                 (0.0, 1.0, 0.0), 55.0, 4 / 3, device="cpu")
+        cam = type(cam)(*(x.cuda() for x in cam))
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            fb, ms = _timed(lambda: r.rasterize(mesh, cam, tex))
+            rec.setdefault("raster_ms", []).append(ms)
+        rec["raster_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        if profile == "offline":
+            _profile_call("[profile offline raster]", smi,
+                          lambda: r.rasterize(mesh, cam, tex),
+                          rec["raster_ms"][-1])
+        rec["raster_coverage"] = float(fb[..., 3].mean())
+        for cubes in (False, True):
+            fb, ms = _timed(lambda: r.rasterize_voxels(vg, cam,
+                                                       use_cubes=cubes))
+            key = "voxels_cubes" if cubes else "voxels_splats"
+            rec[key + "_ms"] = ms
+            rec[key + "_coverage"] = float(fb[..., 3].mean())
+        check(min(rec["cone_trace_coverage"], rec["raster_coverage"],
+                  rec["voxels_splats_coverage"],
+                  rec["voxels_cubes_coverage"]) > 0.01,
+              f"[offline] a view is empty: {rec}")
+        del scene, vg, fb, mesh, tex
+
+        # the CLI's --save-mesh after the orbit
+        path = os.path.join(d, "map.obj")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            (res, rec["cli_s"]) = _timed(lambda: app.main([
+                "--frames", str(ORBIT_FRAMES), "--render-every", "0",
+                "--log-every", "0", "--node-capacity", str(1 << 20),
+                "--save-mesh", path]))
+        rec["cli_s"] /= 1e3
+        rec["cli"] = json.loads(out.getvalue().strip().splitlines()[-1])
+        nv, nf = _count_obj(path)
+        rec["obj_vertices"], rec["obj_faces"] = nv, nf
+        rec["obj_mib"] = os.path.getsize(path) / 2**20
+    launches = dict(cuda_ops.LAUNCHES)
+    rec["launches"] = launches
+    print(f"[offline] {smi} | " + json.dumps(rec))
+    check(not res.diverged and rec["cli"]["ate_rmse"] < FEATURE_ATE_MAX_M,
+          f"[offline] the CLI orbit: {rec['cli']}")
+    check(nv == 8 * ORBIT_MAP_LEAVES and nf == 12 * ORBIT_MAP_LEAVES,
+          f"[offline] the OBJ has {nv} vertices and {nf} faces, expected 8 "
+          f"and 12 times {ORBIT_MAP_LEAVES} leaves")
+    for name in KERNELS:
+        check(launches[name] == ORBIT_FRAMES,
+              f"[offline] {name} launches {launches[name]} != "
+              f"{ORBIT_FRAMES}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="splat", default=None,
-                    choices=("splat", "cone", "cone_march", "cone_hybrid"),
+                    choices=("splat", "cone", "cone_march", "cone_hybrid",
+                             "offline"),
                     help="profile one extra frame of this render by kernel "
-                         "(torch.profiler) and count its host reads")
+                         "(torch.profiler) and count its host reads; "
+                         "offline profiles the 256^3 voxelization, the "
+                         "A-buffer and the 640x480 raster instead")
     args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
@@ -1294,6 +1632,7 @@ def main(argv=None):
                                   splat_res["map_size_by_frame"])
     launches["relocalize"] = phase_relocalize(smi, cfg, frames, gts)
     launches["tum"] = phase_tum(smi)
+    launches["offline"] = phase_offline(smi, args.profile)
     # no single PyTorch call computes either function, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": spec["replaces"],

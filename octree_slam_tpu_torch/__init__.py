@@ -18,7 +18,12 @@ directory cache, the caller-driven pager (`pipeline.insert_remainder`) and
 (`app.run_slam` with growth, host tiering, relocalization and checkpoints,
 and the CLI, `python -m octree_slam_tpu_torch.app`), TUM replay
 (`io/tum.py` on its own PNG codec, `io/png.py`) and the `Octree` facade
-(`map/octree.py`). Both
+(`map/octree.py`). The offline and interactive paths are ported too: mesh
+I/O (`io/obj.py`, `io/bmp.py`), the voxelizer and its A-buffer
+(`map/voxelization.py`), the point, voxel-splat and triangle rasterizers
+(`render/points.py`, `render/raster.py`), `render/renderer.Renderer`,
+`scene.Scene`, the fly camera and both viewers (`viewer.py`,
+`live_viewer.py`), and the CLI's `--save-mesh`. Both
 sensor stencils of the reference (the 7x7 bilateral filter and the 5x5
 gated subsample) run as hand-written CUDA kernels for sm_90a
 (`csrc/sensor_stencils.cu`, bound in `sensor/cuda_ops.py`); every other op
@@ -28,9 +33,10 @@ CPU tensors the kernel wrappers run their plain PyTorch versions instead.
 The entry points that make tensors (`pipeline.init_state`, `svo.create`,
 `mips.create`, `splat.create_leaf_list`, the `sources` constructors, the
 `convert` readers, `app.run_slam`, `app.load_state`, `app.main`'s
-`--device`, `io.tum.TUMDataset` and `map.octree.Octree`) put them on the
-card unless the caller names another device, as the CPU tests do; without
-a card they raise.
+`--device`, `io.tum.TUMDataset`, `map.octree.Octree`, `scene.Scene`, the
+mesh and texture readers, `core.camera.make_camera` and the viewers'
+`--device`) put them on the card unless the caller names another device,
+as the CPU tests do; without a card they raise.
 
 `pipeline.check_supported` raises where the reference does and for four
 band knobs of the hybrid that are not ported (`render/hybrid.py` says

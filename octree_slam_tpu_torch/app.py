@@ -493,6 +493,54 @@ def load_state(path: str, cfg: SLAMConfig, device="cuda"):
     return state, cfg
 
 
+def export_mesh(path: str, state: "pipeline.SLAMState", cfg: SLAMConfig,
+                archive=None) -> int:
+    """Write the final map as an OBJ of voxel cubes (the JAX CLI's
+    --save-mesh): every occupied leaf on the device, interiors refreshed
+    first where lazy frames left them stale (the extraction descends
+    them), plus the leaves the host archive holds (the archive is emptied
+    into the export). Cubes at scale voxel_resolution / 2. Returns the
+    number of voxels written."""
+    from octree_slam_tpu_torch.core import packing
+    from octree_slam_tpu_torch.core.types import BoundingBox, VoxelGrid
+    from octree_slam_tpu_torch.io.obj import save_obj
+    from octree_slam_tpu_torch.map import morton, svo, voxelization
+
+    pool = (svo.refresh_interior(state.pool, depth=cfg.max_depth)
+            if bool(state.interior_stale) else state.pool)
+    # doubled until the whole map fits (a fixed capacity would truncate)
+    ex, _ = svo.extract_all_leaves(pool, depth=cfg.max_depth,
+                                   start_capacity=cfg.extract_capacity)
+    n_live = int(ex.count)
+    centers, colors = ex.centers[:n_live], ex.colors[:n_live]
+    if archive is not None and len(archive):
+        keys, vals = archive.take(list(archive.cells.keys()))
+        dev = pool.center.device
+        centers = torch.cat([centers, morton.decode_centers(
+            torch.from_numpy(keys).to(dev), pool.center, pool.half_size,
+            cfg.max_depth)])
+        colors = torch.cat([colors, packing.unpack_rgba_unit(
+            torch.from_numpy(vals.view(np.int32)).to(dev))])
+    count = centers.shape[0]
+    grid = VoxelGrid(
+        centers=centers, colors=colors,
+        count=torch.tensor(count, dtype=torch.int32),
+        scale=torch.tensor(cfg.voxel_resolution / 2.0),
+        bbox=BoundingBox(pool.center - pool.half_size,
+                         pool.center + pool.half_size))
+    save_obj(path, voxelization.voxel_grid_to_mesh(grid))
+    return count
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device of a CLI's --device; cuda without a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return dev
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="octree-slam on PyTorch (the port's runner)")
@@ -532,8 +580,7 @@ def main(argv=None):
     p.add_argument("--save-state", type=str, default=None,
                    help="write the whole SLAM state to this .npz at the end")
     p.add_argument("--save-mesh", type=str, default=None,
-                   help="export the final map as an OBJ of voxel cubes "
-                        "(not ported yet)")
+                   help="export the final map as an OBJ of voxel cubes")
     p.add_argument("--save-trajectory", type=str, default=None,
                    help="write the estimated trajectory in the TUM format; "
                         "ground truth, when there is one, goes to "
@@ -545,14 +592,7 @@ def main(argv=None):
                    help="torch device to run on (cpu for a run without a "
                         "card)")
     args = p.parse_args(argv)
-    if args.save_mesh:
-        raise NotImplementedError(
-            "--save-mesh is not ported yet: it needs "
-            "voxelization.voxel_grid_to_mesh and io/obj.py")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
+    dev = resolve_device(args.device)
 
     resume = None
     state_sink: list = []
@@ -632,6 +672,9 @@ def main(argv=None):
         if res.gt_poses and len(res.gt_poses) == len(res.poses):
             write_trajectory(args.save_trajectory + ".gt.txt",
                              res.gt_poses, timestamps=ts)
+    if args.save_mesh and state_sink:
+        export_mesh(args.save_mesh, state_sink[0], res.final_cfg,
+                    res.archive)
     print(json.dumps({
         "fps": round(res.fps, 3),
         "steady_fps": round(res.steady_fps, 3),

@@ -1,8 +1,8 @@
 """SE(3) utilities (counterpart: octree_slam_tpu/core/se3.py).
 
 Transforms are 4x4 matrices acting on column vectors, T = [[R, t], [0, 1]];
-a twist is x = [omega(3), v(3)]. The point/direction helpers of the
-reference live in sensor/image_ops here (transform_vertex_map / _normal_map).
+a twist is x = [omega(3), v(3)]. The vertex and normal maps are
+transformed by sensor/image_ops (transform_vertex_map / _normal_map).
 """
 
 from __future__ import annotations
@@ -78,3 +78,15 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     out[..., :3, :3] = Rt
     out[..., :3, 3] = -(Rt @ t[..., None])[..., 0]
     return out
+
+
+def transform_points(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply T to points, w = 1 (transformVertexMap,
+    image_kernels.cu:206-219)."""
+    return p @ T[..., :3, :3].transpose(-1, -2) + T[..., :3, 3]
+
+
+def transform_dirs(T: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Apply T to directions, w = 0 (transformNormalMap,
+    image_kernels.cu:221-234)."""
+    return d @ T[..., :3, :3].transpose(-1, -2)

@@ -44,12 +44,20 @@ class Octree:
         return min(d, MAX_KEY_DEPTH)
 
     @property
+    def center(self) -> np.ndarray:
+        return self.pool.center.cpu().numpy()
+
+    @property
     def size(self) -> float:
         return float(self.pool.half_size)
 
     def bounding_box(self) -> BoundingBox:
         c, s = self.pool.center, self.pool.half_size
         return BoundingBox(bbox0=c - s, bbox1=c + s)
+
+    def contains(self, bbox: BoundingBox) -> bool:
+        """True if `bbox` lies wholly inside the root cell."""
+        return bool(self.bounding_box().contains(bbox))
 
     def _insert_all(self, points, colors, valid) -> svo.InsertStats:
         """Insert, paging through the sorted remainder while a frame has

@@ -38,11 +38,14 @@ from octree_slam_tpu_torch.sensor import tracking
 def _depth_from_zbuffer(buf: torch.Tensor, cfg: SLAMConfig) -> torch.Tensor:
     """Packed splat z-buffer(s) i32[..., H*W] -> the quantised depth as
     integer millimetres i32[..., H, W], holes closed first: a leaf centre
-    splats one point, and a sparse view gives no normals."""
+    splats one point, and a sparse view gives no normals. The cast
+    truncates toward zero and saturates at 65,535 mm, as the reference's
+    float32 -> uint16 convert does on XLA (a cast through torch.uint16
+    would wrap instead)."""
     img = dilate_zbuffer(buf, width=cfg.width, height=cfg.height, rounds=3)
     qz = torch.where(img != EMPTY, img >> 16, 0)
-    return (qz.to(torch.float32) * (cfg.max_range / 32766.0)
-            * 1e3).to(torch.int32)
+    mm = qz.to(torch.float32) * (cfg.max_range / 32766.0) * 1e3
+    return mm.clamp(max=65535.0).to(torch.int32)
 
 
 def pyramid_from_zbuffer(buf: torch.Tensor, cfg: SLAMConfig):

@@ -21,6 +21,17 @@ from typing import Tuple
 
 import torch
 
+# candidate lanes that the voxelizer and the rasterizer enumerate at once;
+# read at each call, so it bounds the memory of every chunked enumeration
+CHUNK_LANES = 1 << 22
+
+
+def chunks(n: int, budget: int):
+    """[start, end) ranges over n items of `budget` lanes each, as many
+    items a range as CHUNK_LANES holds (at least one)."""
+    step = max(1, CHUNK_LANES // budget)
+    return [(s, min(s + step, n)) for s in range(0, n, step)]
+
 
 def exclusive_ranks(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exclusive prefix-sum ranks of a boolean mask and the total count

@@ -26,3 +26,22 @@ def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray,
         p_est = p_est @ R.T + t
     err = p_est - p_gt
     return float(np.sqrt(np.mean(np.sum(err * err, axis=-1))))
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
+    """Relative pose error over `delta` frames: (translation RMSE,
+    rotation RMSE in radians)."""
+    est = np.asarray(est_poses)
+    gt = np.asarray(gt_poses)
+    n = est.shape[0] - delta
+    t_err = []
+    r_err = []
+    for i in range(n):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(dg) @ de
+        t_err.append(np.linalg.norm(e[:3, 3]))
+        c = np.clip((np.trace(e[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        r_err.append(np.arccos(c))
+    return (float(np.sqrt(np.mean(np.square(t_err)))),
+            float(np.sqrt(np.mean(np.square(r_err)))))

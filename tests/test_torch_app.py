@@ -267,9 +267,16 @@ def test_cli_orbit_saves_trajectory_and_frames(tmp_path, capsys):
 
 
 def test_cli_refuses_unported_and_missing_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        app.main(["--frames", "1", "--save-mesh", str(tmp_path / "m.obj"),
-                  "--device", "cpu"])
+    # --save-mesh is ported: one frame writes the map's cube mesh, 8
+    # vertices and 12 faces a voxel
+    mesh = tmp_path / "m.obj"
+    app.main(["--frames", "1", "--width", "32", "--height", "24",
+              "--max-depth", "5", "--resolution", "0.1", "--log-every", "0",
+              "--save-mesh", str(mesh), "--device", "cpu"])
+    lines = mesh.read_text().splitlines()
+    n_v = sum(line.startswith("v ") for line in lines)
+    n_f = sum(line.startswith("f ") for line in lines)
+    assert n_v > 0 and n_v % 8 == 0 and n_f == 12 * (n_v // 8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(["--frames", "1", "--width", "32", "--height", "24"])

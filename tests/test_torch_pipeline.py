@@ -259,7 +259,13 @@ def test_port_imports_and_steps_without_jax():
         "from octree_slam_tpu_torch.render import conesplat, hybrid, raycast\n"
         "from octree_slam_tpu_torch import app, relocalize\n"
         "from octree_slam_tpu_torch.map import octree, tiering\n"
-        "from octree_slam_tpu_torch.io import png, tum\n"
+        "from octree_slam_tpu_torch.io import png, tum, obj, bmp\n"
+        "from octree_slam_tpu_torch.core import camera, se3, types\n"
+        "from octree_slam_tpu_torch.map import voxelization\n"
+        "from octree_slam_tpu_torch.render import points, raster, renderer\n"
+        "from octree_slam_tpu_torch.render import camera_controller\n"
+        "from octree_slam_tpu_torch import scene, viewer, live_viewer\n"
+        "from octree_slam_tpu_torch.utils import fma\n"
         "cfg = SLAMConfig(width=32, height=24, focal_x=28.0, focal_y=28.0,"
         " pyramid_depth=2, pyramid_iters=(2, 2), voxel_resolution=0.1,"
         " max_depth=5, node_capacity=1 << 12, leaf_capacity=1 << 10,"
@@ -277,6 +283,20 @@ def test_port_imports_and_steps_without_jax():
         " '--max-depth', '5', '--resolution', '0.1', '--log-every', '0',"
         " '--device', 'cpu'])\n"
         "assert res.frames == 2 and not res.diverged\n"
+        "import tempfile, os\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = os.path.join(d, 'q.obj')\n"
+        "open(p, 'w').write('v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nv 1 1 0.2\\n"
+        "f 1 2 4 3\\n')\n"
+        "sc = scene.Scene(SLAMConfig(vox_log_n=4, vox_tri_budget=64,"
+        " node_capacity=1 << 13, extract_capacity=1 << 10), device='cpu')\n"
+        "sc.load_obj_file(p)\n"
+        "g = sc.voxelize_meshes(octree=True)\n"
+        "assert int(g.count) > 0\n"
+        "cam = camera.make_camera((0.5, 0.5, 2.0), (0.5, 0.5, 0.0),"
+        " (0.0, 1.0, 0.0), 60.0, 4 / 3, device='cpu')\n"
+        "fb = renderer.Renderer(32, 24).rasterize(sc.meshes[0], cam)\n"
+        "assert float(fb[..., 3].sum()) > 0\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not [m for m in loaded if m.split('.')[0] in"
         " ('jax', 'octree_slam_tpu')], loaded\n"

@@ -176,3 +176,45 @@ def test_without_relocalize_stays_lost(stream, capsys):
     assert tev == jev == []
     np.testing.assert_allclose(np.stack(tres.poses), np.stack(jres.poses),
                                atol=1e-4)
+
+
+def test_depth_saturates_past_uint16_range():
+    """At max_range = 100 m a depth word near 32,766 unpacks to ~100,000
+    mm. The reference's float32 -> uint16 convert saturates at 65,535 (XLA
+    on the CPU, jitted or not); the port must too, not keep the int32
+    value and not wrap as a cast through torch.uint16 would. The words
+    hold depths both below and above the uint16 range."""
+    cfg = dataclasses.replace(CFG, max_range=100.0)
+    tcfg = port_config(cfg)
+    rng = np.random.default_rng(11)
+    n = cfg.width * cfg.height
+    # a smooth ramp across the image keeps normals defined: its left
+    # third lies within the vertex map's 15 m, the rest beyond 65.5 m
+    ramp = np.concatenate([
+        np.linspace(700, 4500, cfg.width // 3),
+        np.linspace(21500, 32766, cfg.width - cfg.width // 3)])
+    q = np.tile(ramp.astype(np.int32), cfg.height)
+    noisy = rng.random(n) < 0.3
+    q[noisy] = rng.integers(21500, 32767, int(noisy.sum()))
+    buf = (q << 16) | rng.integers(0, 1 << 16, n).astype(np.int32)
+    buf[rng.random(n) < 0.05] = jsplat.EMPTY
+    img = jsplat.dilate_zbuffer(jnp.asarray(buf), width=cfg.width,
+                                height=cfg.height, rounds=3).reshape(-1)
+    qz = jnp.where(img != jsplat.EMPTY, img >> 16, 0)
+    # the reference's expression (octree_slam_tpu/relocalize.py:57-58)
+    want = np.asarray((qz.astype(jnp.float32) * (cfg.max_range / 32766.0)
+                       * 1e3).astype(jnp.uint16).reshape(cfg.height,
+                                                         cfg.width))
+    assert (want == 65535).mean() > 0.4 and (want < 15000).mean() > 0.2
+    got = relocalize._depth_from_zbuffer(torch.from_numpy(buf), tcfg)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    # the pyramids built on those words, within the module's tolerance
+    tpyr = relocalize.pyramid_from_zbuffer(torch.from_numpy(buf), tcfg)
+    jpyr = jreloc.pyramid_from_zbuffer(jnp.asarray(buf), cfg)
+    for lvl, (t, j) in enumerate(zip(tpyr, jpyr)):
+        jv = np.asarray(j.vertex)
+        assert np.isfinite(jv).all(-1).mean() > 0.15, lvl
+        for name in ("vertex", "normal"):
+            share = close_share(getattr(t, name).numpy(),
+                                np.asarray(getattr(j, name)))
+            assert share >= 0.99, (lvl, name, share)
