@@ -65,7 +65,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  16. tum: a 14-frame 640x480 TUM-format sequence written by the port and
      replayed through its CLI, with slam_fps (frames staged on the card)
      and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder);
- 17. offline, at the reference's full size: an in-code mesh of 100,000
+     [native]: whether the native host I/O runtime (io/native.py) built,
+     which PNG decoder the TUM reader took, and the native decode of the
+     sequence's files against the pure decoder, byte for byte;
+ 17. multichip: the orbit through parallel.run2d.run_slam_2d on the 2-D
+     ("px", "map") mesh, every shard on the card's one device: the map
+     axis alone (1 x 8) equal to the splat orbit bit for bit (poses,
+     union of the shards' leaves, packed z-buffer); two row slabs (2 x 4)
+     for splat, cone and hybrid, each frame's slab pyramid equal to the
+     whole frame's, poses within 1e-5 and the ATE within 1e-5 m of the
+     pinned one, two launches of each kernel a frame, the renders against
+     the single-device renderer on the same leaves (the splat's packed
+     z-buffer and image, the cone's slab words bit for bit); a run that grows and
+     rebalances, equal to one pool fed its poses; the sharded tiering and
+     checkpoint round trips; a recovery with frame 8 blanked;
+ 18. offline, at the reference's full size: an in-code mesh of 100,000
      triangles with a 256x256 texture, written and read back through the
      port's OBJ and BMP code and Scene; the 256^3 voxel grid twice (equal
      word for word), its occupied set against the A-buffer's, THIN inside
@@ -78,7 +92,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      launches the two stencils.
 Every orbit starts with the kernels' launch counts at 0 and must find each
 kernel launched once per frame (plus one batched launch per recovery
-attempt). The last lines are the card's name and
+attempt), or once per row slab and frame on the 2-D mesh. The last lines are the card's name and
 power limit, a JSON line of the kernels, and {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -90,6 +104,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -1226,6 +1241,7 @@ def phase_tum(smi: str):
         est = tum._read_groundtruth(traj)
 
         ds = tum.TUMDataset(root, max_frames=ORBIT_FRAMES, device="cuda")
+        _native_check(smi, ds)
         t0 = time.perf_counter()
         for i in range(len(ds)):
             ds.decode(i)
@@ -1396,7 +1412,7 @@ def _count_obj(path):
 
 
 def phase_offline(smi: str, profile=None):
-    """Phase 17: the offline paths at the reference's full size. An in-code
+    """Phase 18: the offline paths at the reference's full size. An in-code
     sphere and torus of 100,000 triangles with a 256x256 checker, written
     with the port's OBJ and BMP writers and read back through Scene; the
     256^3 grid (budget 512) twice, word for word the same, its occupied
@@ -1596,6 +1612,433 @@ def phase_offline(smi: str, profile=None):
     return launches
 
 
+
+# the [multichip] phase: the map shards of each mesh, and the 2-D mesh's
+# pose tolerance against the single-device orbit (the slab sums of the
+# normal equations add in another order)
+MULTICHIP_MESHES = ((1, 8), (2, 4))
+MULTICHIP_POSE_TOL = 1e-5
+MULTICHIP_ATE_TOL_M = 1e-5
+
+
+def _timed_frames(frames, events):
+    """The frames as an iterator that records a CUDA event as each is
+    taken: consecutive events bracket one iteration of the consumer's loop
+    (its step and its trailing signal read)."""
+    for f in frames:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        yield f
+
+
+def _run_2d(cfg, mesh, frames, gts, render, **kw):
+    """run2d.run_slam_2d over the orbit on the card with the kernels'
+    counts set to 0 just before and read just after, frame times by CUDA
+    events (the frames after the warm-up) and the peak memory. Returns
+    (state, cfg, info, report)."""
+    from octree_slam_tpu_torch.parallel import run2d
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    state, cfg2, info = run2d.run_slam_2d(
+        _timed_frames(frames, events), cfg, mesh, initial_pose=gts[0],
+        render=render, **kw)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    events.append(end)
+    ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    return state, cfg2, info, {
+        "render": render, "mesh": mesh.shape, "launches": launches,
+        "frame_ms_median": statistics.median(ms[ORBIT_WARMUP:]),
+        "wall_s": wall,
+        "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "events": [e["event"] for e in info["events"]]}
+
+
+def _union_leaf_list(smap):
+    """The union of the shards' registries as one single-device LeafList
+    (keys, words; node indices are the shards' own and unused by the
+    renderers)."""
+    from octree_slam_tpu_torch.render.splat import LeafList
+    keys = torch.cat([lv.keys for lv in smap.leaves])
+    return LeafList(keys=keys, nodes=torch.cat([lv.nodes
+                                                for lv in smap.leaves]),
+                    vals=torch.cat([lv.vals for lv in smap.leaves]),
+                    node2pos=keys.new_zeros((1,)),
+                    count=torch.tensor(keys.shape[0], dtype=torch.int32,
+                                       device=keys.device),
+                    overflowed=torch.zeros((), dtype=torch.bool,
+                                           device=keys.device))
+
+
+def _union_pool(smap, cfg):
+    """One pool holding exactly the union's leaf words, interiors
+    refreshed (the single-device map of the same leaves)."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.map import svo, tiering
+    from octree_slam_tpu_torch.parallel import run2d
+    keys, vals = run2d.union_leaves(smap)
+    p0 = smap.pools[0]
+    pool = svo.create(cfg.node_capacity * len(smap.pools), p0.center,
+                      p0.half_size, device="cuda")
+    pool, _ = tiering.bulk_insert_exact(
+        pool, keys, vals, depth=cfg.max_depth,
+        unique_cap=cfg.insert_unique_cap,
+        shallow_level=pipeline._accel_level(cfg), overwrite=True)
+    return svo.refresh_interior(pool, depth=cfg.max_depth)
+
+
+def _render_checks(smap, pose, cfg, mesh, render, fb):
+    """The 2-D mesh's render of its map against the single-device
+    renderer on the same leaves: the splat's packed z-buffer words and its
+    finished image bit for bit; the cone's slab words bit for bit (min
+    per shard then across shards is the global scatter-min) and its image
+    to 1 ulp; the hybrid's union mirror word for word against one rebuilt
+    from a pool of the same leaves, and its image within 1e-5 on all but
+    0.5% of pixels at > 40 dB (the bounds of tests/test_run2d.py)."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.map import mips
+    from octree_slam_tpu_torch.parallel import distributed
+    from octree_slam_tpu_torch.render import conesplat, hybrid, splat
+    spec = pipeline._slab_spec(cfg)
+    leaves = _union_leaf_list(smap)
+    p0 = smap.pools[0]
+    fx, fy = cfg.focal_x, cfg.focal_y
+    out = {}
+    if render == "splat":
+        words = distributed.model_zbuffer_sharded(smap, pose, cfg, mesh)
+        one = splat.splat_zbuffer(
+            leaves.vals, leaves.keys, leaves.keys >= 0, p0.center,
+            p0.half_size, pose, fx, fy, width=cfg.width, height=cfg.height,
+            depth=cfg.max_depth, max_range=cfg.max_range)
+        ref = splat.finish_zbuffer(one, width=cfg.width, height=cfg.height)
+        out = {"differing_zbuffer_words": int((words != one).sum()),
+               "zbuffer_words": int(words.numel()),
+               "differing_image_values": int((fb != ref).sum())}
+        check(out["differing_zbuffer_words"] == 0,
+              f"[multichip] splat: {out['differing_zbuffer_words']} z-buffer "
+              f"words differ from the single-device splat")
+        check(out["differing_image_values"] == 0,
+              f"[multichip] splat: {out['differing_image_values']} image "
+              f"values differ from the single-device splat")
+    elif render == "cone":
+        words = distributed.slab_words_sharded(smap, pose, fx, fy, cfg, spec)
+        one = conesplat.slab_scatter_min(
+            leaves.vals, leaves.keys, leaves.keys >= 0, p0.center,
+            p0.half_size, pose, fx, fy, spec=spec, depth=cfg.max_depth)
+        ref = conesplat.render_cone_splat(leaves, p0.center, p0.half_size,
+                                          pose, fx, fy, spec=spec,
+                                          depth=cfg.max_depth)
+        out = {"differing_slab_words": int((words != one).sum()),
+               "slab_words": int(words.numel()),
+               "image_max_abs_diff": float((fb - ref).abs().max())}
+        check(out["differing_slab_words"] == 0,
+              f"[multichip] cone: {out['differing_slab_words']} slab words "
+              f"differ from the global scatter-min")
+        check(out["image_max_abs_diff"] <= 2e-7,
+              f"[multichip] cone image off by {out['image_max_abs_diff']}")
+    elif render == "cone_hybrid":
+        lvl = pipeline._accel_level(cfg)
+        cache, _ = distributed.union_leaf_mirror(smap, cfg)
+        one = mips.rebuild_from_pool(_union_pool(smap, cfg),
+                                     max_depth=cfg.max_depth, dist_level=lvl,
+                                     max_skip=cfg.dist_max_skip)
+        one = mips.encode_free_dist(one, max_depth=cfg.max_depth,
+                                    dist_level=lvl)
+        lo = mips.level_offset(cfg.max_depth)
+        out["differing_mirror_words"] = int(
+            (cache.values[lo:] != one.values[lo:]).sum()
+            + (cache.occ != one.occ).sum() + (cache.dist != one.dist).sum())
+        ref = hybrid.render_cone_hybrid(
+            leaves, one, p0.center, p0.half_size, pose, fx, fy, spec=spec,
+            depth=cfg.max_depth, dist_level=lvl, max_range=cfg.max_range,
+            start_dist=cfg.start_dist, band_cap=cfg.cone_band_cap,
+            band_iters=cfg.cone_band_iters, crawl=cfg.cone_band_crawl,
+            fused_dist=cfg.cone_band_fused_dist,
+            depth_prio=cfg.cone_band_depth_prio,
+            compact_after=cfg.cone_band_compact_after)
+        d = (fb[..., :3] - ref[..., :3]).abs()
+        out["pixels_off_1e-5"] = float((d.max(-1).values > 1e-5)
+                                       .float().mean())
+        mse = float((d ** 2).mean())
+        out["psnr_db"] = 10.0 * math.log10(1.0 / max(mse, 1e-12))
+        check(out["differing_mirror_words"] == 0,
+              f"[multichip] hybrid: {out['differing_mirror_words']} mirror "
+              f"words differ from the rebuilt mirror")
+        check(out["pixels_off_1e-5"] < 0.005 and out["psnr_db"] > 40.0,
+              f"[multichip] hybrid image: {out}")
+    return out
+
+
+def phase_multichip(smi: str, cfg, frames, gts, splat_registry):
+    """Phase 17: run_slam_2d, the app loop on the 2-D ("px", "map") mesh,
+    at full width on the card: the map axis alone against the splat orbit
+    bit for bit; the rows split in two for each render against the orbit
+    within the stated pose tolerance and the pinned ATE; a run that grows
+    and rebalances against a single pool fed its own poses; the sharded
+    tiering round trip; the checkpoint round trip; a recovery. Returns the
+    kernels' launches of the (2, 4) splat run."""
+    from octree_slam_tpu_torch import convert, pipeline
+    from octree_slam_tpu_torch.map import svo, tiering
+    from octree_slam_tpu_torch.parallel import distributed, run2d, tiering2d
+    from octree_slam_tpu_torch.render import splat
+    from octree_slam_tpu_torch.sensor import tracking
+    gts_np = [g.cpu().numpy() for g in gts]
+    t_phase = time.perf_counter()
+    print(f"[multichip] {smi} | torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}")
+
+    # the single-device orbit: poses and map of pipeline.step("splat")
+    ref = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
+    ref_poses = []
+    for f in frames:
+        ref, out = pipeline.step(ref, f, cfg)
+        ref_poses.append(out.pose)
+    ref_poses = torch.stack(ref_poses).cpu().numpy()
+    ref_k, ref_v = (x.numpy() for x in _sorted_registry(ref))
+    check(np.array_equal(ref_k, splat_registry[0].numpy())
+          and np.array_equal(ref_v, splat_registry[1].numpy()),
+          "[multichip] the single-device orbit's registry moved")
+
+    def union_off(smap):
+        k, v = run2d.union_leaves(smap)
+        if k.shape != ref_k.shape or not np.array_equal(k, ref_k):
+            return int(np.setxor1d(k, ref_k).size)
+        return int(np.count_nonzero(v != ref_v.view(np.uint32)))
+
+    reports = {}
+    # 1. the map axis alone: the single-device tracker, bit for bit
+    mesh = distributed.make_mesh2(*MULTICHIP_MESHES[0])
+    print(f"[multichip] mesh {mesh.shape}: map shards on "
+          f"{[str(d) for d in mesh.axis_devices('map')]}, row slabs on "
+          f"{[str(d) for d in mesh.axis_devices('px')]}")
+    state, _, info, rep = _run_2d(cfg, mesh, frames, gts, "splat")
+    pose = torch.from_numpy(info["poses"][-1]).cuda()
+    zb = distributed.model_zbuffer_sharded(state.smap, pose, cfg, mesh)
+    live = (torch.arange(ref.leaves.keys.shape[0], device="cuda")
+            < ref.leaves.count) & (ref.leaves.keys >= 0)
+    zb1 = splat.splat_zbuffer(
+        ref.leaves.vals, ref.leaves.keys, live, ref.pool.center,
+        ref.pool.half_size, pose, cfg.focal_x, cfg.focal_y, width=cfg.width,
+        height=cfg.height, depth=cfg.max_depth, max_range=cfg.max_range)
+    rep.update(poses_equal=bool(np.array_equal(info["poses"], ref_poses)),
+               union_leaves_differing=union_off(state.smap),
+               zbuffer_words_differing=int((zb != zb1).sum()),
+               ate_rmse_m=_orbit_ate(list(info["poses"]), gts_np))
+    reports["1x8 splat"] = rep
+    print(f"[multichip] {smi} | " + json.dumps(rep))
+    check(rep["poses_equal"], "[multichip] 1x8: poses differ from the orbit")
+    check(rep["union_leaves_differing"] == 0,
+          f"[multichip] 1x8: {rep['union_leaves_differing']} union leaves "
+          f"differ from the orbit's registry")
+    check(rep["zbuffer_words_differing"] == 0,
+          "[multichip] 1x8: the packed z-buffer differs")
+    for name in KERNELS:
+        check(rep["launches"][name] == ORBIT_FRAMES,
+              f"[multichip] 1x8: {name} launched {rep['launches'][name]}")
+    del state
+
+    # 2. rows in two slabs: the pyramid of every frame bit for bit
+    mesh = distributed.make_mesh2(*MULTICHIP_MESHES[1])
+    print(f"[multichip] mesh {mesh.shape}: map shards on "
+          f"{[str(d) for d in mesh.axis_devices('map')]}, row slabs on "
+          f"{[str(d) for d in mesh.axis_devices('px')]} rows "
+          f"{[s.rows for s in distributed.frame_sharding(mesh, cfg)]}, "
+          f"halo {distributed.pyramid_halo(cfg)}")
+    sensor = distributed.row_sharded_sensor(cfg, mesh)
+    off = 0
+    for f in frames:
+        whole, _ = sensor(f)
+        for a, b in zip(whole, tracking.build_pyramid(f.depth, f.color, cfg)):
+            off += sum(int((x != y).sum()) for x, y in zip(a, b))
+    print(f"[multichip] slab pyramids of {len(frames)} frames: {off} "
+          f"values differ from the whole frame's")
+    check(off == 0, f"[multichip] {off} slab pyramid values differ")
+    launches = None
+    for render in ("splat", "cone", "cone_hybrid"):
+        rcfg = dataclasses.replace(cfg, **HYBRID_BAND) \
+            if render == "cone_hybrid" else cfg
+        state, _, info, rep = _run_2d(rcfg, mesh, frames, gts, render)
+        pose = torch.from_numpy(info["poses"][-1]).cuda()
+        fb = {"splat": distributed.render_sharded_map,
+              "cone": distributed.render_sharded_cone,
+              "cone_hybrid": distributed.render_sharded_hybrid}[render](
+            state.smap, pose, rcfg.focal_x, rcfg.focal_y, rcfg, mesh)
+        rep.update(
+            pose_max_abs_diff=float(np.abs(info["poses"] - ref_poses).max()),
+            ate_rmse_m=_orbit_ate(list(info["poses"]), gts_np),
+            union_leaves_differing=union_off(state.smap),
+            **_render_checks(state.smap, pose, rcfg, mesh, render, fb))
+        reports[f"2x4 {render}"] = rep
+        print(f"[multichip] {smi} | " + json.dumps(rep))
+        check(rep["pose_max_abs_diff"] <= MULTICHIP_POSE_TOL,
+              f"[multichip] 2x4 {render}: poses off by "
+              f"{rep['pose_max_abs_diff']}")
+        check(abs(rep["ate_rmse_m"] - ORBIT_ATE_M) <= MULTICHIP_ATE_TOL_M,
+              f"[multichip] 2x4 {render}: ATE {rep['ate_rmse_m']:.9f} m")
+        for name in KERNELS:
+            check(rep["launches"][name] == 2 * ORBIT_FRAMES,
+                  f"[multichip] 2x4 {render}: {name} launched "
+                  f"{rep['launches'][name]}, expected 2 a frame")
+        if render == "splat":
+            launches = rep["launches"]
+            splat_state = state
+        del state
+
+    # 3. growth and rebalancing, against one pool fed the run's poses
+    # registries of 4,096 rows overflow on the first frame and grow; the
+    # pools have room for any shard's share
+    gcfg = dataclasses.replace(cfg, map_split_level=2,
+                               node_capacity=1 << 19, leaf_capacity=1 << 12)
+    state, gcfg2, info, rep = _run_2d(gcfg, mesh, frames, gts, "splat",
+                                      rebalance_factor=1.1)
+    one = svo.create(cfg.node_capacity, state.smap.pools[0].center,
+                     state.smap.pools[0].half_size, device="cuda")
+    reg = splat.create_leaf_list(cfg.leaf_capacity, cfg.node_capacity,
+                                 device="cuda")
+    for f, p in zip(frames, info["poses"]):
+        p = torch.from_numpy(p).cuda()
+        v = tracking.build_pyramid(f.depth, f.color, cfg)[0].vertex
+        wp = v.reshape(-1, 3) @ p[:3, :3].T + p[:3, 3]
+        lk = None
+        while True:
+            one, st = svo.insert(one, wp, pipeline._fuse_colors(f, cfg),
+                                 depth=cfg.max_depth,
+                                 unique_cap=cfg.insert_unique_cap, min_key=lk)
+            reg = splat.append_new_leaves(reg, st)
+            if not bool(st.unique_overflow):
+                break
+            lk = st.last_key
+    k1, v1 = distributed.registry_rows(reg)
+    o = np.argsort(k1, kind="stable")
+    k1, v1 = k1[o], v1[o]
+    k2, v2 = run2d.union_leaves(state.smap)
+    rep.update(node_capacity=gcfg2.node_capacity,
+               leaf_capacity=gcfg2.leaf_capacity,
+               any_overflow=bool(any(bool(p.overflowed)
+                                     for p in state.smap.pools)
+                                 or any(bool(lv.overflowed)
+                                        for lv in state.smap.leaves)),
+               union_equals_replay=bool(np.array_equal(k1, k2)
+                                        and np.array_equal(v1, v2)),
+               bounds=state.smap.bounds.tolist())
+    reports["2x4 grow"] = rep
+    print(f"[multichip] {smi} | " + json.dumps(rep))
+    check("grow" in rep["events"] and "rebalance" in rep["events"],
+          f"[multichip] the growth run's events {rep['events']}")
+    check(not rep["any_overflow"], "[multichip] the growth run overflowed")
+    check(rep["union_equals_replay"],
+          "[multichip] the growth run's union differs from the replay")
+    del state, one, reg
+
+    # 4. tiering: every leaf spilled (camera far) and restored
+    smap = splat_state.smap
+    k0, v0 = run2d.union_leaves(smap)
+    tcfg = dataclasses.replace(cfg, restore_radius=1e6)
+    archive = tiering.HostArchive(tcfg.tier_level)
+    t0 = time.perf_counter()
+    smap, n_spill = tiering2d.spill_cold_sharded(
+        smap, tcfg, mesh, archive, camera_pos=gts_np[-1][:3, 3] + 1000.0)
+    torch.cuda.synchronize()
+    t_spill = time.perf_counter() - t0
+    left = int(distributed.shard_leaf_counts(smap).sum())
+    t0 = time.perf_counter()
+    smap, tcfg2, n_rest = tiering2d.restore_due_sharded(
+        smap, tcfg, mesh, archive, camera_pos=gts_np[-1][:3, 3])
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    k1, v1 = run2d.union_leaves(smap)
+    tier = {"leaves": int(k0.size), "spilled": n_spill, "left": left,
+            "restored": n_rest, "spill_s": t_spill, "restore_s": t_restore,
+            "differing_leaf_words": (int(np.count_nonzero(v0 != v1))
+                                     if np.array_equal(k0, k1) else -1)}
+    print(f"[multichip] tiering {smi} | " + json.dumps(tier))
+    check(n_spill == k0.size and left == 0 and n_rest == k0.size,
+          f"[multichip] tiering moved {tier}")
+    check(tier["differing_leaf_words"] == 0,
+          f"[multichip] tiering: {tier['differing_leaf_words']} words differ")
+
+    # 5. the checkpoint round trip
+    state = splat_state._replace(smap=smap)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "smap.npz")
+        t0 = time.perf_counter()
+        run2d.save_sharded(path, state, tcfg2)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        loaded, _ = run2d.load_sharded(path, tcfg2, mesh)
+    from octree_slam_tpu_torch.app import _flatten
+    a = _flatten(convert.state2d_to_numpy(state))
+    b = _flatten(convert.state2d_to_numpy(loaded))
+    ck = {"fields": len(a), "file_bytes": size, "save_s": t_save,
+          "differing_words": sum(int(np.count_nonzero(a[k] != b[k]))
+                                 for k in a if k in b and
+                                 a[k].shape == b[k].shape)}
+    print(f"[multichip] checkpoint {smi} | " + json.dumps(ck))
+    check(a.keys() == b.keys() and ck["differing_words"] == 0,
+          f"[multichip] checkpoint: {ck}")
+    del state, loaded, splat_state, smap
+
+    # 6. recovery: frame RELOC_GARBAGE_FRAME blanked
+    rcfg = dataclasses.replace(cfg, keypose_every=2,
+                               reloc_candidates=RELOC_CANDIDATES)
+    bad = list(frames)
+    f = bad[RELOC_GARBAGE_FRAME]
+    bad[RELOC_GARBAGE_FRAME] = type(f)(torch.zeros_like(f.depth),
+                                       torch.zeros_like(f.color), f.timestamp)
+    state, _, info, rep = _run_2d(rcfg, mesh, bad, gts, "splat")
+    rep["last_frame_translation_err_m"] = float(np.linalg.norm(
+        info["poses"][-1][:3, 3] - gts_np[-1][:3, 3]))
+    rep["diverged"] = bool(state.diverged)
+    print(f"[multichip] relocalize {smi} | " + json.dumps(rep))
+    check("relocalize" in rep["events"] and not rep["diverged"]
+          and rep["last_frame_translation_err_m"] < RELOC_ERR_MAX_M,
+          f"[multichip] no recovery: {rep}")
+    del state
+    print(f"[multichip] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _native_check(smi: str, ds):
+    """The [native] lines: whether the native runtime built (and if not,
+    the compiler's first error line), which PNG decoder the TUM reader
+    took, and where it built, its decode of the sequence's files against
+    the pure decoder byte for byte, with the decode ms a frame of each."""
+    from octree_slam_tpu_torch.io import native, png
+    avail = native.available()
+    rep = {"available": avail, "build_error": native.BUILD_ERROR,
+           "tum_decode_path": "native libpng" if avail else "pure io/png.py"}
+    if avail:
+        files = [os.path.join(ds.root, name) for pair in ds.pairs
+                 for _, name in pair]
+        t0 = time.perf_counter()
+        got = [native.read_png(f) for f in files]
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [png.read_png(f) for f in files]
+        t_pure = time.perf_counter() - t0
+        rep.update(
+            files=len(files),
+            differing_files=sum(
+                a.dtype != b.dtype or a.shape != b.shape
+                or not np.array_equal(a, b) for a, b in zip(got, want)),
+            native_decode_ms_per_frame=1e3 * t_native / len(ds.pairs),
+            pure_decode_ms_per_frame=1e3 * t_pure / len(ds.pairs))
+    print(f"[native] {smi} | " + json.dumps(rep))
+    if avail:
+        check(rep["differing_files"] == 0,
+              f"[native] {rep['differing_files']} PNGs decode otherwise "
+              f"than the pure decoder")
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const="splat", default=None,
@@ -1632,6 +2075,8 @@ def main(argv=None):
                                   splat_res["map_size_by_frame"])
     launches["relocalize"] = phase_relocalize(smi, cfg, frames, gts)
     launches["tum"] = phase_tum(smi)
+    launches["multichip"] = phase_multichip(smi, cfg, frames, gts,
+                                            splat_registry)
     launches["offline"] = phase_offline(smi, args.profile)
     # no single PyTorch call computes either function, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,

@@ -17,8 +17,12 @@ directory cache, the caller-driven pager (`pipeline.insert_remainder`) and
 `pipeline.heal_for_march`. Around the step it has the app loop
 (`app.run_slam` with growth, host tiering, relocalization and checkpoints,
 and the CLI, `python -m octree_slam_tpu_torch.app`), TUM replay
-(`io/tum.py` on its own PNG codec, `io/png.py`) and the `Octree` facade
-(`map/octree.py`). The offline and interactive paths are ported too: mesh
+(`io/tum.py`: the repo's native libpng runtime through `io/native.py`
+where it builds, else its own PNG codec, `io/png.py`) and the `Octree`
+facade (`map/octree.py`). The multi-device path is the reference's
+single-controller design on a mesh of torch devices (`parallel/`: the
+row-sharded pyramid and tracker, the Morton-range-sharded map, the 2-D
+mesh's app loop `run2d.run_slam_2d` and its tiering). The offline and interactive paths are ported too: mesh
 I/O (`io/obj.py`, `io/bmp.py`), the voxelizer and its A-buffer
 (`map/voxelization.py`), the point, voxel-splat and triangle rasterizers
 (`render/points.py`, `render/raster.py`), `render/renderer.Renderer`,
@@ -34,8 +38,8 @@ The entry points that make tensors (`pipeline.init_state`, `svo.create`,
 `mips.create`, `splat.create_leaf_list`, the `sources` constructors, the
 `convert` readers, `app.run_slam`, `app.load_state`, `app.main`'s
 `--device`, `io.tum.TUMDataset`, `map.octree.Octree`, `scene.Scene`, the
-mesh and texture readers, `core.camera.make_camera` and the viewers'
-`--device`) put them on the card unless the caller names another device,
+mesh and texture readers, `core.camera.make_camera`, the viewers'
+`--device` and the meshes of `parallel.distributed`) put them on the card unless the caller names another device,
 as the CPU tests do; without a card they raise.
 
 `pipeline.check_supported` raises where the reference does and for four

@@ -10,6 +10,11 @@ an unchanged one loads the cached library.
 
 Nothing is fetched and nothing falls back: a missing nvcc or a failed
 compile raises.
+
+`build_native` compiles the repo's host I/O runtime (`native/src/*.cpp`:
+libpng decode and encode, the threaded frame prefetcher, the OBJ parser)
+with g++ the way `native/Makefile` does, into the same directory, named the
+same way; io/native.py loads it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+NATIVE_SRC = _PKG.parent / "native" / "src"
+NATIVE_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+NATIVE_LIBS = ("-lpng", "-lz", "-lpthread")
 
 # what the last build() did, for the smoke script's report
 BUILD_INFO: dict = {}
@@ -130,3 +139,39 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = library().oslam_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}: {msg}")
+
+
+def native_lib_path(src: Path = NATIVE_SRC) -> Path:
+    """Where build_native puts the library of the sources in `src`: named
+    by a hash of the sources and flags."""
+    h = hashlib.sha256(" ".join(NATIVE_FLAGS + NATIVE_LIBS).encode())
+    for f in sorted(src.glob("*.cpp")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liboslam_native-{h.hexdigest()[:16]}.so"
+
+
+def build_native(src: Path = NATIVE_SRC, rebuild: bool = False) -> Path:
+    """Compile the host I/O runtime's sources in `src` with g++ (CXX) if
+    their cached library is missing or stale, or always with `rebuild`;
+    returns its path. Raises RuntimeError with the compiler's output when
+    the build fails (no compiler, no libpng headers)."""
+    cxx = os.environ.get("CXX", "g++")
+    sources = sorted(src.glob("*.cpp"))
+    lib_path = native_lib_path(src)
+    if lib_path.is_file() and not rebuild:
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    cmd = [cxx, *NATIVE_FLAGS, "-o", str(tmp), *map(str, sources),
+           *NATIVE_LIBS]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cxx} failed to start: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path

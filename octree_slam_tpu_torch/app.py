@@ -70,7 +70,7 @@ def _to_np(x) -> np.ndarray:
         else np.asarray(x)
 
 
-class _SignalSlots:
+class SignalSlots:
     """One host buffer and one event per frame in flight: the trailing read
     holds frame j's vector while frame j+1 copies its own, so they must
     not share a buffer. On the CPU the copy is synchronous."""
@@ -315,7 +315,7 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
     # frame j's vector copies while frame j+1 is issued. The 3/4 growth
     # thresholds absorb the one frame of lag.
     lag = 1 if cfg.device_remainder else 0
-    slots = _SignalSlots(lag + 1, dev)
+    slots = SignalSlots(lag + 1, dev)
     queue: list = []
     frame_s: list = []    # per-frame wall time: median -> steady fps
     growth_at: list = []  # frame_s indices of a growth's frame
@@ -416,6 +416,40 @@ def _unflatten(flat: dict, template):
     return build(template, "")
 
 
+def write_fields(path: str, tree, stamps: dict) -> None:
+    """A compressed npz of the stamps and of every array of `tree` (nested
+    dicts and lists of numpy arrays) by its dotted name."""
+    np.savez_compressed(path, **stamps, **{
+        _FIELD + k: v for k, v in _flatten(tree).items()})
+
+
+def read_fields(path: str, data: dict, tree):
+    """The fields of a write_fields file (`data`, its arrays by name) in
+    the structure of `tree`, the numpy tree of a template state that the
+    file's stamps describe, as attribute namespaces. A field missing,
+    extra or of another dtype or shape than the template's raises and
+    names it."""
+    expect = _flatten(tree)
+    flat = {}
+    for name, want in expect.items():
+        key = _FIELD + name
+        if key not in data:
+            raise ValueError(f"checkpoint {path!r} lacks field {name}")
+        a = data[key]
+        if a.dtype != want.dtype or a.shape != want.shape:
+            raise ValueError(
+                f"checkpoint {path!r} field {name}: stored "
+                f"{a.dtype}{list(a.shape)} vs expected "
+                f"{want.dtype}{list(want.shape)} for this config")
+        flat[name] = a
+    extra = sorted(k[len(_FIELD):] for k in data
+                   if k.startswith(_FIELD) and k[len(_FIELD):] not in expect)
+    if extra:
+        raise ValueError(f"checkpoint {path!r} has fields this config does "
+                         f"not: {extra}")
+    return _unflatten(flat, tree)
+
+
 def save_state(path: str, state: pipeline.SLAMState,
                cfg: SLAMConfig | None = None) -> None:
     """Checkpoint the whole SLAM state (map, pose, pyramids, caches) to a
@@ -423,7 +457,6 @@ def save_state(path: str, state: pipeline.SLAMState,
     stamps. Pass the run's final cfg (RunResult.final_cfg): growth changes
     capacities, and load_state rebuilds the layout from the stamps."""
     from octree_slam_tpu_torch.map import svo
-    fields = _flatten(convert.state_to_numpy(state))
     stamps = {"prealloc": svo.prealloc_levels(state.pool.capacity)}
     if cfg is not None:
         stamps.update(node_capacity=cfg.node_capacity,
@@ -431,8 +464,7 @@ def save_state(path: str, state: pipeline.SLAMState,
                       **{k: (int(v) if isinstance(v, bool) else v)
                          for k, v in ((k, getattr(cfg, k))
                                       for k, _ in _STAMPS)})
-    np.savez_compressed(path, **stamps,
-                        **{_FIELD + k: v for k, v in fields.items()})
+    write_fields(path, convert.state_to_numpy(state), stamps)
 
 
 def load_state(path: str, cfg: SLAMConfig, device="cuda"):
@@ -470,25 +502,7 @@ def load_state(path: str, cfg: SLAMConfig, device="cuda"):
             f"incompatible")
     # the expected fields, from a template that allocates nothing
     tree = convert.state_to_numpy(pipeline.init_state(cfg, device="meta"))
-    expect = _flatten(tree)
-    flat = {}
-    for name, want in expect.items():
-        key = _FIELD + name
-        if key not in data:
-            raise ValueError(f"checkpoint {path!r} lacks field {name}")
-        a = data[key]
-        if a.dtype != want.dtype or a.shape != want.shape:
-            raise ValueError(
-                f"checkpoint {path!r} field {name}: stored "
-                f"{a.dtype}{list(a.shape)} vs expected "
-                f"{want.dtype}{list(want.shape)} for this config")
-        flat[name] = a
-    extra = sorted(k[len(_FIELD):] for k in data
-                   if k.startswith(_FIELD) and k[len(_FIELD):] not in expect)
-    if extra:
-        raise ValueError(f"checkpoint {path!r} has fields this config does "
-                         f"not: {extra}")
-    state = convert.state_from_numpy(_unflatten(flat, tree), cfg,
+    state = convert.state_from_numpy(read_fields(path, data, tree), cfg,
                                      device=device)
     return state, cfg
 

@@ -15,9 +15,16 @@ crosses by its fields: `values`, `occ`, `dist` of a dense mirror, or
 `entry` of an entry grid. This module reads only numpy arrays, so it needs
 no jax.
 
-`clone_state` copies a port state: `pipeline.step` updates the map in
-place, so a state that is to be stepped or rendered more than one way
-(a fidelity comparison, a test) is cloned first.
+`sharded_map_from_numpy` / `sharded_map_to_numpy` carry the reference's
+Morton-sharded map (its `[M, ...]`-stacked ShardedMap, bounds `[M, M+1]`)
+to the port's per-shard lists on a mesh's devices and back, and
+`state2d_from_numpy` / `state2d_to_numpy` the 2-D mesh's state tuple
+(parallel/distributed.State2D, the reference's tuple order).
+
+`clone_state` copies a port state (a SLAMState or a State2D):
+`pipeline.step` and the sharded step update the map in place, so a state
+that is to be stepped or rendered more than one way (a fidelity
+comparison, a test) is cloned first.
 """
 
 from __future__ import annotations
@@ -79,12 +86,6 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
         keys=_t(lv.keys, device), nodes=_t(lv.nodes, device),
         vals=_t(lv.vals, device), node2pos=_t(lv.node2pos, device),
         count=_t(lv.count, device), overflowed=_t(lv.overflowed, device))
-    def pyramid_of(levels):
-        return tuple(
-            PyramidLevel(vertex=_t(l.vertex, device),
-                         normal=_t(l.normal, device),
-                         intensity=_t(l.intensity, device)) for l in levels)
-
     ac = np_tree.accel
     if cfg.use_dense_mips != hasattr(ac, "values"):
         raise ValueError("state.accel does not fit cfg.use_dense_mips")
@@ -93,8 +94,8 @@ def state_from_numpy(np_tree, cfg: SLAMConfig, device="cuda") -> SLAMState:
              if cfg.use_dense_mips else AccelGrid(entry=_t(ac.entry, device)))
     return SLAMState(
         pool=pool, leaves=leaves, accel=accel, pose=_t(np_tree.pose, device),
-        last_pyramid=pyramid_of(np_tree.last_pyramid),
-        key_pyramid=pyramid_of(np_tree.key_pyramid),
+        last_pyramid=_pyramid_of(np_tree.last_pyramid, device),
+        key_pyramid=_pyramid_of(np_tree.key_pyramid, device),
         **{name: _t(getattr(np_tree, name), device) for name in _PLAIN})
 
 
@@ -125,23 +126,111 @@ def state_to_numpy(state: SLAMState) -> dict:
                   if isinstance(state.accel, RenderCache)
                   else {"entry": _np(state.accel.entry)}),
         "pose": _np(state.pose),
-        **{which: [{"vertex": _np(l.vertex), "normal": _np(l.normal),
-                    "intensity": _np(l.intensity)}
-                   for l in getattr(state, which)]
+        **{which: _pyramid_np(getattr(state, which))
            for which in ("last_pyramid", "key_pyramid")},
         **{name: _np(getattr(state, name), u32=name in _U32)
            for name in _PLAIN},
     }
 
 
-def clone_state(state: SLAMState) -> SLAMState:
+def clone_state(state):
     """A copy of `state` that shares no tensor with it."""
     def copy(x):
         if isinstance(x, torch.Tensor):
             return x.clone()
-        return type(x)(*map(copy, x)) if hasattr(x, "_fields") \
-            else tuple(map(copy, x))
+        if isinstance(x, np.ndarray):
+            return x.copy()
+        if hasattr(x, "_fields"):
+            return type(x)(*map(copy, x))
+        return type(x)(map(copy, x))
     return copy(state)
+
+
+def _pyramid_of(levels, device):
+    return tuple(PyramidLevel(vertex=_t(l.vertex, device),
+                              normal=_t(l.normal, device),
+                              intensity=_t(l.intensity, device))
+                 for l in levels)
+
+
+def _pyramid_np(levels) -> list:
+    return [{"vertex": _np(l.vertex), "normal": _np(l.normal),
+             "intensity": _np(l.intensity)} for l in levels]
+
+
+def sharded_map_from_numpy(np_smap, cfg: SLAMConfig, mesh):
+    """The port's ShardedMap on `mesh` from the reference's stacked one
+    whose leaves are numpy arrays: shard d's rows go to the device of map
+    index d. Capacities and the shard count must match."""
+    from octree_slam_tpu_torch.parallel import distributed
+    devs = mesh.axis_devices(distributed.axis_name_of(mesh))
+    p, lv = np_smap.pool, np_smap.leaves
+    bounds = np.asarray(np_smap.bounds, np.int32)
+    bounds = bounds[0] if bounds.ndim == 2 else bounds
+    if bounds.shape[0] != len(devs) + 1:
+        raise ValueError(f"the map has {bounds.shape[0] - 1} shards, the "
+                         f"mesh's map axis {len(devs)}")
+    for d in range(len(devs)):
+        _expect_len("pool.child", np.asarray(p.child)[d], cfg.node_capacity)
+        _expect_len("leaves.keys", np.asarray(lv.keys)[d],
+                    cfg.leaf_capacity)
+
+    def shard(tree, cls, d, dev):
+        return cls(*(_t(np.asarray(getattr(tree, f))[d], dev)
+                     for f in cls._fields))
+
+    return distributed.ShardedMap(
+        pools=[shard(p, SVONodePool, d, dev) for d, dev in enumerate(devs)],
+        leaves=[shard(lv, LeafList, d, dev) for d, dev in enumerate(devs)],
+        bounds=bounds.copy())
+
+
+def sharded_map_to_numpy(smap) -> dict:
+    """The reference's stacked layout as nested dicts of numpy arrays:
+    every field [M, ...], bounds [M, M+1] (identical rows), packed words
+    as uint32."""
+    def stack(xs, fields, u32):
+        return {f: np.stack([_np(getattr(x, f), u32=f in u32) for x in xs])
+                for f in fields}
+    m = len(smap.pools)
+    return {"pool": stack(smap.pools, SVONodePool._fields, ("value",)),
+            "leaves": stack(smap.leaves, LeafList._fields, ("vals",)),
+            "bounds": np.broadcast_to(np.asarray(smap.bounds, np.int32),
+                                      (m, m + 1)).copy()}
+
+
+def state2d_from_numpy(np_state, cfg: SLAMConfig, mesh):
+    """The port's 2-D state on `mesh` from the reference's
+    (last_pyramid, pose, initialized, smap, diverged, key_pyramid,
+    key_pose, key_T_cam) tuple of numpy arrays (or a namespace with those
+    names, as the checkpoint reader makes): the map shard by shard, the
+    rest on the mesh's home."""
+    from octree_slam_tpu_torch.parallel.distributed import State2D
+    if not isinstance(np_state, (tuple, list)):
+        np_state = [getattr(np_state, f) for f in State2D._fields]
+    (last_pyr, pose, init, smap, div, key_pyr, key_pose,
+     key_T) = np_state
+    if bool(len(key_pyr)) != cfg.track_keyframe:
+        raise ValueError("state key_pyramid does not fit cfg.track_keyframe")
+    home = mesh.home
+    return State2D(
+        last_pyramid=_pyramid_of(last_pyr, home), pose=_t(pose, home),
+        initialized=_t(init, home),
+        smap=sharded_map_from_numpy(smap, cfg, mesh),
+        diverged=_t(div, home), key_pyramid=_pyramid_of(key_pyr, home),
+        key_pose=_t(key_pose, home), key_T_cam=_t(key_T, home))
+
+
+def state2d_to_numpy(state) -> dict:
+    """Nested dicts of numpy arrays under State2D's field names, the map in
+    the reference's stacked layout."""
+    return {"last_pyramid": _pyramid_np(state.last_pyramid),
+            "pose": _np(state.pose), "initialized": _np(state.initialized),
+            "smap": sharded_map_to_numpy(state.smap),
+            "diverged": _np(state.diverged),
+            "key_pyramid": _pyramid_np(state.key_pyramid),
+            "key_pose": _np(state.key_pose),
+            "key_T_cam": _np(state.key_T_cam)}
 
 
 def frame_from_numpy(depth: np.ndarray, color: np.ndarray, timestamp=0.0,

@@ -4,6 +4,7 @@
 parsed and rows 4-byte aligned (the reference reads a fixed 54-byte header
 and no row padding). `save_bmp` writes the 24-bit files it reads, for
 textures made in code; `save_image` writes framebuffers as PNG through the
+native runtime's libpng (io/native.py) where it builds, else through the
 port's own codec (the machine the port runs on has no PIL).
 """
 
@@ -74,10 +75,15 @@ def save_bmp(path: str, rgb) -> None:
 
 def save_image(path: str, rgba) -> None:
     """Write a framebuffer ([H, W, 3|4] float in [0, 1], or uint8) as a
-    PNG, the replacement of the GL window's presentation."""
+    PNG, the replacement of the GL window's presentation: through the
+    native runtime's libpng where it builds, else the port's codec."""
     arr = np.asarray(rgba)
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
     if not path.endswith(".png"):
         raise ValueError(f"save_image writes PNG only, got {path!r}")
+    from octree_slam_tpu_torch.io import native
+    if native.available():
+        native.write_png(path, arr)
+        return
     write_png(path, arr)

@@ -5,7 +5,9 @@ octree_slam_tpu/io/tum.py, and examples/make_tum_sequence.py for
 Layout (vision.in.tum.de/data/datasets/rgbd-dataset): rgb.txt and
 depth.txt list "timestamp filename", groundtruth.txt "timestamp tx ty tz
 qx qy qz qw"; depth PNGs are 16-bit at 5000 units per metre, so
-mm = value / 5. PNGs decode with the port's own codec (io/png.py).
+mm = value / 5. PNGs decode through the native runtime (io/native.py:
+libpng, and its threaded prefetcher in `prefetched`) where it builds, else
+with the port's own codec (io/png.py); both give the same bytes.
 
 `TUMDataset.prefetched` decodes frames in a feeder thread `ahead` frames in
 front of the consumer and uploads each as one packed u8 buffer (depth as
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from octree_slam_tpu_torch.core.types import Frame
+from octree_slam_tpu_torch.io import native
 from octree_slam_tpu_torch.io.png import read_png, write_png
 
 DEPTH_FACTOR_TO_MM = 5.0  # TUM: 5000 per metre; the sensor path wants mm
@@ -47,6 +50,18 @@ def _split_packed(buf: torch.Tensor, ts: float, *, h: int, w: int) -> Frame:
     return Frame(depth=depth, color=color,
                  timestamp=torch.full((), ts, dtype=torch.float32,
                                       device=buf.device))
+
+
+def _read_png(path: str) -> np.ndarray:
+    """A PNG through the native runtime's libpng where it builds and reads
+    the file, else through the port's codec, which names the fault of a
+    file that neither reads (a missing one raises FileNotFoundError)."""
+    if native.available():
+        try:
+            return native.read_png(path)
+        except OSError:
+            pass
+    return read_png(path)
 
 
 def _read_list(path: str) -> List[Tuple[float, str]]:
@@ -126,8 +141,8 @@ class TUMDataset:
         """Frame i on the host: (depth u16[H, W] mm, rgb u8[H, W, 3],
         timestamp)."""
         (td, fd), (_, fr) = self.pairs[i]
-        depth_raw = read_png(os.path.join(self.root, fd))
-        color = read_png(os.path.join(self.root, fr))
+        depth_raw = _read_png(os.path.join(self.root, fd))
+        color = _read_png(os.path.join(self.root, fr))
         if color.ndim == 2:
             color = np.repeat(color[..., None], 3, axis=-1)
         depth_mm = depth_raw.astype(np.float32) / DEPTH_FACTOR_TO_MM
@@ -147,16 +162,38 @@ class TUMDataset:
         `ahead` frames in front of the consumer; ahead=0 decodes in the
         caller's thread. Each frame is one packed upload (see the module
         docstring); on a card the host buffers are pinned, one per frame in
-        flight, each reused only after its copy's event has completed."""
+        flight, each reused only after its copy's event has completed.
+        With the native runtime the PNGs decode in its threaded prefetcher
+        (native/src/prefetch.cpp), the feeder's source."""
         if not self.pairs:
             return
         cuda = self.device.type == "cuda"
+        pf = None
+        if native.available():
+            h, w = self.decode(0)[0].shape
+            pf = native.FramePrefetcher(
+                [os.path.join(self.root, fd) for (_, fd), _ in self.pairs],
+                [os.path.join(self.root, fr) for _, (_, fr) in self.pairs],
+                w, h, depth_to_mm=1.0 / DEPTH_FACTOR_TO_MM)
+
+        def decoded(i: int):
+            if pf is None:
+                return self.decode(i)
+            try:
+                nxt = pf.next()
+            except OSError:
+                # decode it alone: the pure codec names the fault (a
+                # missing file raises FileNotFoundError)
+                return self.decode(i)
+            if nxt is None:
+                raise IOError(f"the prefetcher ended before frame {i}")
+            return nxt[0], nxt[1], self.pairs[i][0][0]
         slots = ahead + 2
         pinned: list = [None] * slots
         events: list = [None] * slots
 
         def upload(i: int) -> Frame:
-            depth_mm, rgb, ts = self.decode(i)
+            depth_mm, rgb, ts = decoded(i)
             h, w = depth_mm.shape
             packed = pack_frame(depth_mm, rgb)
             if not cuda:
@@ -175,8 +212,12 @@ class TUMDataset:
             return _split_packed(buf, ts, h=h, w=w)
 
         if ahead <= 0:
-            for i in range(len(self.pairs)):
-                yield upload(i)
+            try:
+                for i in range(len(self.pairs)):
+                    yield upload(i)
+            finally:
+                if pf is not None:
+                    pf.close()
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=ahead)
@@ -217,6 +258,8 @@ class TUMDataset:
         finally:
             stop.set()
             th.join()
+            if pf is not None:
+                pf.close()
 
     def gt_pose(self, i: int) -> np.ndarray | None:
         """Ground-truth world_T_cam nearest to frame i's timestamp."""

@@ -11,8 +11,9 @@ holes with a 3x3 min dilation.
 
 `leaf_list_from_extraction` rebuilds the registry from an extraction of
 the pool (growth after an overflow, tiering, rebuilds across a prealloc
-boundary). The registry's tensors are updated in place by
-`append_new_leaves` and `append_new_leaves_cached`.
+boundary); `pad_leaf_list` pads it to a larger capacity. The registry's
+tensors are updated in place by `append_new_leaves` and
+`append_new_leaves_cached`.
 """
 
 from __future__ import annotations
@@ -73,6 +74,22 @@ def leaf_list_from_extraction(ex, pool_value: torch.Tensor, *,
                     vals=torch.where(live, pool_value[nodes], 0),
                     node2pos=node2pos, count=ex.count,
                     overflowed=ex.count >= capacity)
+
+
+def pad_leaf_list(leaves: LeafList, capacity: int,
+                  node_capacity: int) -> LeafList:
+    """The registry at a larger leaf and node capacity (growth): free rows
+    and node2pos entries appended, content kept."""
+    lc_pad = capacity - leaves.keys.shape[0]
+    nc_pad = node_capacity - leaves.node2pos.shape[0]
+    if not (lc_pad or nc_pad):
+        return leaves
+    return leaves._replace(
+        keys=torch.cat([leaves.keys, leaves.keys.new_full((lc_pad,), -1)]),
+        nodes=torch.cat([leaves.nodes, leaves.nodes.new_zeros((lc_pad,))]),
+        vals=torch.cat([leaves.vals, leaves.vals.new_zeros((lc_pad,))]),
+        node2pos=torch.cat([leaves.node2pos,
+                            leaves.node2pos.new_full((nc_pad,), -1)]))
 
 
 def append_new_leaves(leaves: LeafList, stats: InsertStats) -> LeafList:

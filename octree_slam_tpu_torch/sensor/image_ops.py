@@ -21,20 +21,26 @@ INVALID_DEPTH_MAX_MM = 15000  # image_kernels.cu:40
 
 
 def generate_vertex_map(depth_mm: torch.Tensor, fx, fy,
-                        img_size: Tuple[int, int]) -> torch.Tensor:
+                        img_size: Tuple[int, int], row0: int = 0,
+                        level_height: int | None = None) -> torch.Tensor:
     """Pinhole backprojection of an integer depth image [..., h, w] (a
     pyramid level of the (full_W, full_H) = img_size sensor image,
     generateVertexMapKernel image_kernels.cu:24-53). Returns
-    f32[..., h, w, 3], INF where depth is 0 or beyond 15 m."""
+    f32[..., h, w, 3], INF where depth is 0 or beyond 15 m.
+
+    A row slab of a level passes its first row `row0` in the level and
+    the level's `level_height` (the slab's own height otherwise)."""
     h, w = depth_mm.shape[-2:]
+    lh = h if level_height is None else level_height
     img_w, img_h = img_size
     dev = depth_mm.device
     d = depth_mm.to(torch.float32)
     x = torch.arange(w, dtype=torch.float32, device=dev).expand(h, w)
-    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    y = torch.arange(row0, row0 + h, dtype=torch.float32,
+                     device=dev)[:, None].expand(h, w)
     milli = 1e-3
     vx = ((img_w / w) * x - img_w / 2.0) * d / fx * milli
-    vy = (img_h / 2.0 - (img_h / h) * y) * d / fy * milli
+    vy = (img_h / 2.0 - (img_h / lh) * y) * d / fy * milli
     vz = d * milli
     v = torch.stack([vx, vy, vz], dim=-1)
     invalid = (depth_mm == 0) | (depth_mm > INVALID_DEPTH_MAX_MM)

@@ -37,7 +37,8 @@ class TrackStats(NamedTuple):
 
 
 def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
-                  cfg: SLAMConfig) -> List[PyramidLevel]:
+                  cfg: SLAMConfig, row0: int = 0,
+                  full_height: int | None = None) -> List[PyramidLevel]:
     """Bilateral filter + intensity + per-level vertex/normal maps
     (rgbd_camera.cpp:61-93). Level 0 is full resolution; levels finer than
     every consumer (track_finest_level, fuse_level) carry 1x1 INF
@@ -47,7 +48,12 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
     then every map has it too, and the batch still takes one bilateral
     launch and one gated-pyramid launch. Relocalization builds its K
     candidates' pyramids that way, where the reference package maps one
-    build over them."""
+    build over them.
+
+    A row slab of the frame (rows row0.. of a full_height-row image, row0
+    a multiple of 2^(pyramid_depth-1)) gets the slab's maps: every
+    level's vertex rows take their place in the whole level
+    (parallel/distributed.py builds the row-sharded pyramid this way)."""
     filtered = image_ops.bilateral_filter(
         depth_mm, kernel_size=cfg.bilateral_kernel_size,
         sigma_spatial=cfg.bilateral_sigma_spatial,
@@ -61,7 +67,10 @@ def build_pyramid(depth_mm: torch.Tensor, color: torch.Tensor,
     for i, d in enumerate(depths):
         if i >= min_map_level:
             vertex = image_ops.generate_vertex_map(
-                d, cfg.focal_x, cfg.focal_y, (cfg.width, cfg.height))
+                d, cfg.focal_x, cfg.focal_y, (cfg.width, cfg.height),
+                row0=row0 >> i,
+                level_height=(None if full_height is None
+                              else full_height >> i))
             normal = image_ops.generate_normal_map(vertex)
         else:
             vertex = torch.full(d.shape[:-2] + (1, 1, 3), torch.inf,
@@ -81,6 +90,16 @@ def icp_normal_equations(v1: torch.Tensor, n1: torch.Tensor,
     correspondences. v1/n1: last-frame maps, v2/n2: current maps already
     in the last frame. Gates per localization_kernels.cu:186-204.
     Returns (A f32[6,6], b f32[6], inlier_count i32[], mean_abs_residual)."""
+    A, b, count, res_sum = icp_sums(v1, n1, v2, n2, cfg)
+    return A, b, count, res_sum / torch.clamp(count.to(torch.float32),
+                                              min=1.0)
+
+
+def icp_sums(v1: torch.Tensor, n1: torch.Tensor, v2: torch.Tensor,
+             n2: torch.Tensor, cfg: SLAMConfig):
+    """icp_normal_equations' sums: (A, b, inlier_count, sum of |r| w).
+    Every one adds over pixels, so row slabs of a frame add theirs (the
+    mean residual is the summed numerator over the summed count)."""
     v1 = v1.reshape(-1, 3)
     n1 = n1.reshape(-1, 3)
     v2 = v2.reshape(-1, 3)
@@ -112,10 +131,7 @@ def icp_normal_equations(v1: torch.Tensor, n1: torch.Tensor,
             cfg.icp_huber_k / torch.clamp(torch.abs(r), min=1e-9), max=1.0)
     A = (J * w[:, None]).T @ J
     b = (r * w) @ J
-    count = mask.sum(dtype=torch.int32)
-    mean_res = torch.sum(torch.abs(r) * w) / torch.clamp(
-        count.to(torch.float32), min=1.0)
-    return A, b, count, mean_res
+    return A, b, mask.sum(dtype=torch.int32), torch.sum(torch.abs(r) * w)
 
 
 def rgbd_normal_equations(last: PyramidLevel, cur_vertex: torch.Tensor,
@@ -125,8 +141,10 @@ def rgbd_normal_equations(last: PyramidLevel, cur_vertex: torch.Tensor,
     compare intensities and linearise through the last image's gradient.
     For a residual r(xi) ~ r0 + [v x m, m] . xi with m = dpi^T grad it
     accumulates J = -[v x m, m], so the ICP term's (A, b) convention
-    holds. Returns (A f32[6,6], b f32[6], count i32[])."""
-    h, w = cur_intensity.shape
+    holds. The current maps may be a row slab of the frame: the last
+    level is whole, and sets the level's size.
+    Returns (A f32[6,6], b f32[6], count i32[])."""
+    h, w = last.intensity.shape
     img_w, img_h = cfg.width, cfg.height
     sx = w / img_w  # the level's pixel scale
     sy = h / img_h
@@ -197,23 +215,39 @@ def solve_normal_equations(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(info > 0, torch.nan, x)
 
 
-def _track_level(last: PyramidLevel, cur: PyramidLevel, update_T,
-                 iters: int, cfg: SLAMConfig):
-    """`iters` Gauss-Newton iterations at one pyramid level."""
-    v1, n1 = last.vertex, last.normal
-    v2, n2 = cur.vertex, cur.normal
+def _track_level(last: PyramidLevel, cur, update_T, iters: int,
+                 cfg: SLAMConfig, psum=lambda xs: xs):
+    """`iters` Gauss-Newton iterations at one pyramid level. `cur` is the
+    current frame's level, or its row slabs at this level as a list of
+    (first row, PyramidLevel), each on its own device: each slab pairs
+    with the same rows of `last`, adds its sums, and `psum` adds the
+    slabs' (the first slab's device solves)."""
+    slabs = [(0, cur)] if isinstance(cur, PyramidLevel) else cur
     T = update_T
     diverged = torch.zeros((), dtype=torch.bool, device=T.device)
     zero = torch.zeros(6, dtype=T.dtype, device=T.device)
+    pairs = []
+    for r0, cur in slabs:
+        dev = cur.vertex.device
+        r1 = r0 + cur.vertex.shape[-3]
+        pairs.append((last.vertex[r0:r1].to(dev), last.normal[r0:r1].to(dev),
+                      PyramidLevel(*(x.to(dev) for x in last)), cur))
     count = res = None
     for _ in range(iters):
-        v2t = image_ops.transform_vertex_map(v2, T)
-        n2t = image_ops.transform_normal_map(n2, T)
-        A, b, count, res = icp_normal_equations(v1, n1, v2t, n2t, cfg)
-        if cfg.w_rgbd > 0.0:
-            Ar, br, _ = rgbd_normal_equations(last, v2t, cur.intensity, cfg)
-            A = A + cfg.w_rgbd * Ar
-            b = b + cfg.w_rgbd * br
+        parts = []
+        for v1, n1, last_d, cur in pairs:
+            Td = T.to(v1.device)
+            v2t = image_ops.transform_vertex_map(cur.vertex, Td)
+            n2t = image_ops.transform_normal_map(cur.normal, Td)
+            A, b, count, res_sum = icp_sums(v1, n1, v2t, n2t, cfg)
+            if cfg.w_rgbd > 0.0:
+                Ar, br, _ = rgbd_normal_equations(last_d, v2t, cur.intensity,
+                                                  cfg)
+                A = A + cfg.w_rgbd * Ar
+                b = b + cfg.w_rgbd * br
+            parts.append((A, b, count, res_sum))
+        A, b, count, res_sum = (psum(list(p))[0] for p in zip(*parts))
+        res = res_sum / torch.clamp(count.to(torch.float32), min=1.0)
         x = solve_normal_equations(A, b)
         bad = ~torch.isfinite(x).all() | (count < 6)
         # twist is [omega, v] = [x[:3], x[3:]] by the Jacobian layout
@@ -233,9 +267,22 @@ def track(last_pyramid: List[PyramidLevel],
     anchoring passes the previous frame's transform against the keyframe,
     so that the solver starts one frame from the optimum, not one
     keyframe."""
-    dev = current_pyramid[0].intensity.device
+    return track_slabs(last_pyramid, [(0, current_pyramid)], cfg,
+                       init_T=init_T)
+
+
+def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
+                init_T: torch.Tensor | None = None, *, psum=lambda xs: xs
+                ) -> Tuple[torch.Tensor, TrackStats]:
+    """`track` with the current frame given as row slabs: slabs is a list
+    of (first row at level 0, slab pyramid), each slab on its own device,
+    its rows a multiple of 2^(pyramid_depth-1) apart. Each Gauss-Newton
+    iteration adds the slabs' normal-equation sums with `psum` (a list of
+    per-slab tensors -> the sum on each slab's device) and solves once on
+    the first slab's device (one slab needs no psum: that is `track`)."""
+    dev = slabs[0][1][0].intensity.device
     update_T = (torch.eye(4, dtype=torch.float32, device=dev)
-                if init_T is None else init_T.to(torch.float32))
+                if init_T is None else init_T.to(dev, torch.float32))
     diverged = torch.zeros((), dtype=torch.bool, device=dev)
     inliers, residuals = [], []
     tfl = cfg.track_finest_level
@@ -245,8 +292,9 @@ def track(last_pyramid: List[PyramidLevel],
             f"pyramid_depth={cfg.pyramid_depth}, track_finest_level={tfl}")
     for level in range(cfg.pyramid_depth - 1, tfl - 1, -1):
         update_T, div, count, res = _track_level(
-            last_pyramid[level], current_pyramid[level], update_T,
-            cfg.pyramid_iters[level - tfl], cfg)
+            last_pyramid[level], [(r0 >> level, pyr[level])
+                                  for r0, pyr in slabs],
+            update_T, cfg.pyramid_iters[level - tfl], cfg, psum)
         diverged = diverged | div
         inliers.append(count)
         residuals.append(res)

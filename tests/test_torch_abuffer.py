@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from test_torch_voxelization import TEX, _eq, _meshes, _soup, _soups
 
 from octree_slam_tpu.core.types import BoundingBox as JBox

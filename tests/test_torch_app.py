@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, jax_frame, np_state,
                           orbit_frames, orbit_port_frames, port_config)
 

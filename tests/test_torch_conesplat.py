@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE, close_share, to_t, words
 
 from octree_slam_tpu.render import conesplat as jcs

@@ -8,6 +8,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import port_config
 
 from octree_slam_tpu.config import SLAMConfig as JaxConfig

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import to_t, words
 
 from octree_slam_tpu.core import packing as jpacking, se3 as jse3

@@ -1,5 +1,6 @@
 """The hand-written CUDA stencils against their plain PyTorch versions on
-the card. Marked `cuda`: without a CUDA device every test skips. The
+the card (the two-level pyramid's cases are in
+tests/test_torch_cuda_pyramid.py). Marked `cuda`: without a CUDA device every test skips. The
 repository's conftest imports jax, which the card's machine lacks, so run
 these there with
 
@@ -20,9 +21,6 @@ pytestmark = pytest.mark.cuda
 # 480x640 is the main path's; (2, 1080, 1920) gives a grid of 8,160 blocks
 BILATERAL_SHAPES = [(480, 640), (479, 641), (483, 645), (4, 240, 320),
                     (2, 1080, 1920), (9, 11), (1, 1)]
-# (483, 645) has an odd L1 (241 x 322 -> 120 x 161)
-PYRAMID_SHAPES = [(480, 640), (479, 641), (483, 645), (4, 240, 320), (9, 11),
-                  (5, 5), (1, 1)]
 SHAPES = [(480, 640), (479, 641), (4, 240, 320), (9, 11), (1, 1)]
 
 
@@ -62,21 +60,6 @@ def test_gated_subsample_kernel_matches_plain(device, shape):
     torch.cuda.synchronize()
     assert out.shape == ref.shape
     assert torch.equal(out, ref)
-
-
-@pytest.mark.parametrize("levels", [1, 2])
-@pytest.mark.parametrize("shape", PYRAMID_SHAPES)
-def test_gated_pyramid_kernel_matches_plain(device, shape, levels):
-    d = _depth(shape, 3, device)
-    before = cuda_ops.LAUNCHES["gated_pyramid5x5"]
-    out = cuda_ops.gated_pyramid(d, 120.0, levels)
-    assert cuda_ops.LAUNCHES["gated_pyramid5x5"] == before + 1
-    ref = cuda_ops.gated_pyramid_plain(d, 120.0, levels)
-    torch.cuda.synchronize()
-    assert len(out) == len(ref) == levels
-    for o, r in zip(out, ref):
-        assert o.shape == r.shape and o.dtype == torch.int32
-        assert torch.equal(o, r)
 
 
 def test_kernels_take_an_unaligned_view(device):

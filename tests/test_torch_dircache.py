@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE, INVALID_KEY, random_cloud, to_t, words
 
 from octree_slam_tpu.map import svo as jsvo

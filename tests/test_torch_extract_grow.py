@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, assert_state_equal, jax_frame, np_state,
                           orbit_frames, port_config, random_cloud, to_t,
                           words)

@@ -2,11 +2,10 @@
 (octree_slam_tpu_torch/render/hybrid.py) and the free-cell distance stamps
 (mips.encode_free_dist) against the JAX package, on a map that three
 hybrid frames of the JAX pipeline built (64x48, depth 6) and that crosses
-to the port as numpy arrays.
+to the port as numpy arrays (the window pools and the empty map are in
+tests/test_torch_hybrid_pools.py).
 
 Tolerances:
-  * `_pool_max` / `_pool_min` against `lax.reduce_window` with "SAME"
-    padding (init 0 / +inf): bit-exact, +inf entries included.
   * `encode_free_dist`: word for word, and a second run changes nothing.
   * `band_march_merge` on the same slab image, z_first and mirror: XLA:CPU
     may contract the luminance sum into FMAs, so lanes next to the cut of
@@ -18,8 +17,7 @@ Tolerances:
     `cache.dist`): bit for bit, image and per-lane weights.
   * `render_cone_splat(want_aux=True)` on the pipeline's registry: image,
     w_acc and z_first within 1e-4 on >= 99% of pixels, and z_first only
-    takes slab boundaries or +inf.
-  * an empty map renders black in both packages."""
+    takes slab boundaries or +inf."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, close_share, orbit_frames, port_config,
                           to_t, words)
 
@@ -90,29 +89,6 @@ def _band(jstate, tstate, aux, **kw):
         tstate.pool.half_size, tstate.pose, CFG.focal_x, CFG.focal_y,
         spec=cs.make_slab_spec(**SPEC_KW), **kw)
     return jout, jdbg, tout, tdbg
-
-
-@pytest.mark.parametrize("half,shape", [(2, (48, 64)), (4, (48, 64)),
-                                        (1, (7, 5)), (4, (6, 9))])
-def test_pools_bit_exact_against_reduce_window(half, shape):
-    rng = np.random.default_rng(half + shape[0])
-    grad = rng.random(shape).astype(np.float32)
-    grad[rng.random(shape) < 0.7] = 0.0            # flat regions: exact ties
-    z = rng.uniform(0.3, 5.0, shape).astype(np.float32)
-    z[rng.random(shape) < 0.5] = np.inf
-    big = shape[0] > 2 * half + 2
-    if big:
-        z[:half + 2] = np.inf                       # whole windows of +inf
-    k = 2 * half + 1
-    want_max = jax.lax.reduce_window(jnp.asarray(grad), jnp.float32(0.0),
-                                     jax.lax.max, (k, k), (1, 1), "SAME")
-    want_min = jax.lax.reduce_window(jnp.asarray(z), jnp.float32(jnp.inf),
-                                     jax.lax.min, (k, k), (1, 1), "SAME")
-    np.testing.assert_array_equal(hybrid._pool_max(to_t(grad), half).numpy(),
-                                  np.asarray(want_max))
-    got_min = hybrid._pool_min(to_t(z), half).numpy()
-    np.testing.assert_array_equal(got_min, np.asarray(want_min))
-    assert np.isfinite(got_min).any() and np.isinf(got_min).any() == big
 
 
 @pytest.mark.parametrize("stamped", [False, True])
@@ -232,23 +208,6 @@ def test_render_cone_hybrid_matches(scene):
     assert close_share(tfb, jfb) >= 0.99
     assert float((tfb[..., :3].sum(-1) > 0).float().mean()) > 0.3
     assert close_share(tfb, aux[0]) < 1.0          # not the slab image
-
-
-def test_empty_map_is_black():
-    jstate = jpipeline.init_state(CFG)
-    tstate = pipeline.init_state(TCFG, device=DEVICE)
-    kw = dict(depth=CFG.max_depth, dist_level=LVL, band_iters=6,
-              fused_dist=True)
-    jfb = jhybrid.render_cone_hybrid(
-        jstate.leaves, jstate.accel, jstate.pool.center,
-        jstate.pool.half_size, jstate.pose, CFG.focal_x, CFG.focal_y,
-        spec=jcs.make_slab_spec(**SPEC_KW), **kw)
-    tfb = hybrid.render_cone_hybrid(
-        tstate.leaves, tstate.accel, tstate.pool.center,
-        tstate.pool.half_size, tstate.pose, CFG.focal_x, CFG.focal_y,
-        spec=cs.make_slab_spec(**SPEC_KW), **kw)
-    assert float(tfb[..., :3].abs().max()) == 0.0
-    np.testing.assert_array_equal(tfb.numpy(), np.asarray(jfb))
 
 
 @pytest.mark.parametrize("kw", [{"sel_decimate": True}, {"crawl": 2},

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE
 
 from octree_slam_tpu.core import camera as jcamera

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, assert_mirror_equal, random_cloud, to_t,
                           words)
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE, random_cloud, to_t, words
 
 from octree_slam_tpu.map import morton as jmorton

@@ -1,10 +1,11 @@
 """Port parity for the whole slice: pipeline.step with every render
 ("splat", "cone", "cone_march", "cone_hybrid") and every optional feature
-against the JAX package, from one carried-over state and over whole streams
-that mix the renders (the heal path), the port's own ATE, the synthetic
-sources, state conversion and cloning, what check_supported still refuses,
-that the port runs without jax and without the JAX package, and that its
-entry points default to the card.
+against the JAX package from one carried-over state, the port's own ATE,
+the unique-cap pages, state conversion, and that the port runs without jax
+and without the JAX package. Streams that mix the renders, the heal and
+cloning are in tests/test_torch_pipeline_streams.py; check_supported, the
+sources and the entry points' default device in
+tests/test_torch_pipeline_api.py.
 
 Tolerances (world points go through a 3x3 product that rounds differently
 in the two libraries, so keys at cell boundaries may flip): poses within
@@ -32,18 +33,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (DEVICE, assert_leaf_level_equal,
-                          assert_mirror_equal, assert_step_parity,
-                          close_share, jax_frame, orbit_frames, port_config,
-                          step_both, to_t)
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
+from torch_parity import (DEVICE, assert_leaf_level_equal, assert_step_parity,
+                          jax_frame, orbit_frames, port_config, step_both,
+                          to_t)
 
 from octree_slam_tpu import pipeline as jpipeline
 from octree_slam_tpu.config import SLAMConfig
 from octree_slam_tpu.sensor import sources as jsources
 from octree_slam_tpu_torch import convert, pipeline
-from octree_slam_tpu_torch.map import mips, svo
-from octree_slam_tpu_torch.render import raycast, splat
-from octree_slam_tpu_torch.sensor import sources
 from octree_slam_tpu_torch.utils.metrics import ate_rmse
 
 CFG = SLAMConfig(width=64, height=48, focal_x=55.0, focal_y=55.0,
@@ -201,50 +199,6 @@ def test_step_features_run_against_reference(stream, change, render):
         assert not torch.equal(tstate.key_T_cam, torch.eye(4))
 
 
-@pytest.mark.parametrize("change,render,error", [
-    ({}, "cone_trace", ValueError),
-    ({"use_dense_mips": False}, "cone_hybrid", ValueError),
-    ({"cone_band_sel_decimate": True}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_crawl": 2}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_depth_prio": 0.5}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_compact_after": 4}, "cone_hybrid", NotImplementedError),
-])
-def test_check_supported_rejects(stream, change, render, error):
-    """What `step` still refuses: what the reference refuses (an unknown
-    render renders black there; the hybrid without the dense mirror) and
-    the four band knobs that are not ported. The same knobs pass for every
-    other render, which does not read them."""
-    cfg = dataclasses.replace(TCFG, **change)
-    with pytest.raises(error):
-        pipeline.check_supported(cfg, render)
-    depth, color, gt = stream
-    state = pipeline.init_state(cfg, initial_pose=to_t(gt[0]), device=DEVICE)
-    with pytest.raises(error):
-        pipeline.step(state, convert.frame_from_numpy(
-            depth[0], color[0], device=DEVICE), cfg, render=render)
-    if render == "cone_hybrid":
-        pipeline.check_supported(cfg, "cone")
-
-
-def test_sources_match_reference():
-    pose_j = jsources.orbit_pose(0.25, radius=2.0)
-    pose_t = sources.orbit_pose(0.25, radius=2.0, device=DEVICE)
-    np.testing.assert_allclose(pose_t.numpy(), np.asarray(pose_j), atol=1e-6)
-    jf = jsources.render_frame(jsources.default_scene(), pose_j, 55.0, 55.0,
-                               width=64, height=48)
-    tf = sources.render_frame(sources.default_scene(DEVICE), pose_t, 55.0,
-                              55.0, width=64, height=48)
-    dd = np.abs(tf.depth.numpy() - np.asarray(jf.depth).astype(np.int64))
-    assert dd.max() <= 1 and (dd > 0).mean() <= 0.01
-    dc = np.abs(tf.color.numpy().astype(int) - np.asarray(jf.color))
-    assert dc.max() <= 1
-    rs = sources.ReplaySource(np.asarray(jf.depth)[None],
-                              np.asarray(jf.color)[None], device=DEVICE)
-    f0 = rs.frame(0)
-    assert len(rs) == 1 and f0.depth.dtype == torch.int32
-    np.testing.assert_array_equal(f0.depth.numpy(), np.asarray(jf.depth))
-
-
 def test_port_imports_and_steps_without_jax():
     code = (
         "import sys\n"
@@ -297,6 +251,14 @@ def test_port_imports_and_steps_without_jax():
         " (0.0, 1.0, 0.0), 60.0, 4 / 3, device='cpu')\n"
         "fb = renderer.Renderer(32, 24).rasterize(sc.meshes[0], cam)\n"
         "assert float(fb[..., 3].sum()) > 0\n"
+        "from octree_slam_tpu_torch.parallel import distributed, run2d\n"
+        "from octree_slam_tpu_torch.parallel import tiering2d\n"
+        "from octree_slam_tpu_torch.io import native\n"
+        "mesh = distributed.make_mesh2(2, 2, devices='cpu')\n"
+        "s2 = distributed.slam_init_2d(cfg, mesh, initial_pose=pose)\n"
+        "s2, (fb2, pose2, sig) = distributed.slam_step_2d(cfg, mesh)(s2, f)\n"
+        "assert float(sig[0]) > 0 and fb2.shape == (24, 32, 4)\n"
+        "assert len(run2d.union_leaves(s2.smap)[0]) == int(sig[0])\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not [m for m in loaded if m.split('.')[0] in"
         " ('jax', 'octree_slam_tpu')], loaded\n"
@@ -334,173 +296,3 @@ def test_convert_round_trip(stream):
             device=DEVICE)
 
 
-def test_entry_points_default_to_the_card():
-    """Called with no device, the entry points make their tensors on the
-    card; on a machine without one they raise instead of running on the
-    CPU."""
-    calls = [lambda: pipeline.init_state(TCFG),
-             lambda: svo.create(64, (0.0, 0.0, 0.0), 1.0),
-             lambda: splat.create_leaf_list(8, 64),
-             lambda: mips.create(max_depth=3, dist_level=1),
-             lambda: sources.default_scene(),
-             lambda: sources.orbit_pose(0.0),
-             lambda: convert.frame_from_numpy(
-                 np.zeros((4, 6), np.uint16), np.zeros((4, 6, 3), np.uint8)),
-             lambda: sources.ReplaySource(
-                 np.zeros((1, 4, 6), np.uint16),
-                 np.zeros((1, 4, 6, 3), np.uint8)).frame(0)]
-    if torch.cuda.is_available():
-        assert pipeline.init_state(TCFG).pose.device.type == "cuda"
-        for call in calls[1:]:
-            call()
-        return
-    for call in calls:
-        with pytest.raises((AssertionError, RuntimeError)):
-            call()
-
-
-# each (config, render) pair costs one JAX compile of the whole step, so
-# the streams share configs and stay short
-STREAMS = {
-    "cone": ({}, ["cone"] * 4),
-    "cone_march": ({}, ["cone_march"] * 4),
-    "heal": ({}, ["splat", "cone_march", "splat", "cone_march"]),
-    "heal_after_cone_pointer_march":
-        ({"use_dense_mips": False}, ["cone", "cone_march", "cone_march"]),
-    "eager_every_frame": ({"lazy_interior": False},
-                          ["cone", "cone_march", "cone"]),
-    "paged_half_scale_march":
-        ({"insert_unique_cap": 1 << 8, "cone_scale": 2},
-         ["splat", "cone_march"]),
-}
-
-
-@pytest.mark.parametrize("name", list(STREAMS))
-def test_cone_renders_stream_parity(stream, name):
-    change, renders = STREAMS[name]
-    depth, color, gt = stream
-    cfg = dataclasses.replace(CFG, **change)
-    tcfg = port_config(cfg)
-    jstate = jpipeline.init_state(cfg, initial_pose=jnp.asarray(gt[0]))
-    tstate = pipeline.init_state(tcfg, initial_pose=to_t(gt[0]),
-                                 device=DEVICE)
-    assert isinstance(tstate.accel, mips.RenderCache if cfg.use_dense_mips
-                      else raycast.AccelGrid)
-    for i, render in enumerate(renders):
-        jstate, jo = jpipeline.step(jstate, jax_frame(depth, color, i), cfg,
-                                    render=render)
-        tstate, to = pipeline.step(
-            tstate, convert.frame_from_numpy(depth[i], color[i],
-                                             device=DEVICE), tcfg,
-            render=render)
-        where = f"{name} frame {i} ({render})"
-        np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
-                                   atol=1e-4, err_msg=where)
-        assert int(to.map_nodes) == int(jo.map_nodes), where
-        assert int(to.map_leaves) == int(jo.map_leaves), where
-        for flag in ("interior_stale", "mirror_stale", "stamps_stale"):
-            assert bool(getattr(tstate, flag)) == bool(getattr(jstate, flag)), \
-                (where, flag)
-        assert not bool(to.unique_overflow) and not bool(to.map_overflowed)
-        fb = to.framebuffer
-        assert fb.shape == (CFG.height, CFG.width, 4)
-        assert bool(torch.isfinite(fb).all()), where
-        assert close_share(fb, jo.framebuffer) >= 0.99, where
-        if render != "none":
-            assert float((fb[..., :3].sum(-1) > 0).float().mean()) > 0.3
-        eager = render == "cone_march" or not cfg.lazy_interior
-        if eager and cfg.use_dense_mips:
-            # identical poses so far give identical leaves, and then the
-            # mirrors agree word for word
-            assert_mirror_equal(tstate.accel, jstate.accel, where)
-        if render == "cone_march" and not cfg.use_dense_mips:
-            np.testing.assert_array_equal(tstate.accel.entry.numpy(),
-                                          np.asarray(jstate.accel.entry))
-    assert int(to.map_leaves) > 500
-
-
-def _run_port(cfg, stream, renders):
-    depth, color, gt = stream
-    state = pipeline.init_state(cfg, initial_pose=to_t(gt[0]), device=DEVICE)
-    for i, render in enumerate(renders):
-        state, _ = pipeline.step(
-            state, convert.frame_from_numpy(depth[i], color[i],
-                                            device=DEVICE), cfg,
-            render=render)
-    return state
-
-
-def test_eager_frames_equal_lazy_frames_plus_heal(stream):
-    """The reference's invariant (tests/test_lazy_interior.py): eager
-    inserts followed by nothing leave the pool and the mirror that lazy
-    inserts followed by heal_for_march leave; and the heal is idempotent.
-    The poses do not depend on the interiors, so the leaves are the same."""
-    lazy = _run_port(TCFG, stream, ["splat", "cone", "none"])
-    eager = _run_port(dataclasses.replace(TCFG, lazy_interior=False),
-                      stream, ["none"] * 3)
-    assert bool(lazy.interior_stale) and bool(lazy.mirror_stale)
-    assert not bool(eager.interior_stale) and not bool(eager.mirror_stale)
-    assert not torch.equal(lazy.pool.value, eager.pool.value)
-    # untouched by the lazy frames: the mirror is still empty
-    assert int(lazy.accel.occ.sum()) == 0
-    pool, cache = pipeline.heal_for_march(lazy, TCFG)
-    assert torch.equal(pool.value, eager.pool.value)
-    assert torch.equal(pool.child, eager.pool.child)
-    for name in ("values", "occ"):
-        assert torch.equal(getattr(cache, name),
-                           getattr(eager.accel, name)), name
-    # "none" frames update occ with with_dist=False: dist is the march's
-    eager_dist = mips.refresh_dist(eager.accel, dist_level=4,
-                                   max_skip=TCFG.dist_max_skip).dist
-    assert torch.equal(cache.dist, eager_dist)
-    before = pool.value.clone()
-    pool2, cache2 = pipeline.heal_for_march(lazy._replace(pool=pool), TCFG)
-    assert torch.equal(pool2.value, before)
-    for name in ("values", "occ", "dist"):
-        assert torch.equal(getattr(cache2, name), getattr(cache, name)), name
-
-
-def test_clone_state_shares_nothing(stream):
-    state = _run_port(TCFG, stream, ["cone_march"])
-    twin = convert.clone_state(state)
-    assert type(twin) is type(state)
-    assert type(twin.accel) is type(state.accel)
-    assert isinstance(twin.last_pyramid, tuple)
-    flat = lambda s: [  # noqa: E731
-        t for part in (s.pool, s.leaves, s.accel) for t in part] + [s.pose]
-    for a, b in zip(flat(state), flat(twin)):
-        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
-    depth, color, _ = stream
-    f = convert.frame_from_numpy(depth[1], color[1], device=DEVICE)
-    kept = convert.clone_state(twin)
-    pipeline.step(twin, f, TCFG, render="cone_march")    # writes in place
-    assert not torch.equal(twin.pool.value, kept.pool.value)
-    assert torch.equal(state.pool.value, kept.pool.value)
-    assert torch.equal(state.accel.values, kept.accel.values)
-    # the three renders of one map, each from its own copy
-    outs = {r: pipeline.step(convert.clone_state(state), f, TCFG,
-                             render=r)[1] for r in ("cone", "cone_march")}
-    assert int(outs["cone"].map_leaves) == int(outs["cone_march"].map_leaves)
-
-
-def test_state_with_mirror_carries_over(stream):
-    """A JAX state with a current mirror continues in the port."""
-    depth, color, gt = stream
-    jstate = jpipeline.init_state(CFG, initial_pose=jnp.asarray(gt[0]))
-    for i in range(2):
-        jstate, _ = jpipeline.step(jstate, jax_frame(depth, color, i), CFG,
-                                   render="cone_march")
-    tstate = convert.state_from_numpy(_np_state(jstate), TCFG, device=DEVICE)
-    assert_mirror_equal(tstate.accel, jstate.accel, "carried")
-    jstate, jo = jpipeline.step(jstate, jax_frame(depth, color, 2), CFG,
-                                render="cone_march")
-    tstate, to = pipeline.step(
-        tstate, convert.frame_from_numpy(depth[2], color[2], device=DEVICE),
-        TCFG, render="cone_march")
-    assert close_share(to.framebuffer, jo.framebuffer) >= 0.99
-    assert abs(int(to.map_leaves) - int(jo.map_leaves)) \
-        <= 0.01 * int(jo.map_leaves)
-    with pytest.raises(ValueError):
-        convert.state_from_numpy(
-            _np_state(jstate),
-            dataclasses.replace(TCFG, use_dense_mips=False), device=DEVICE)

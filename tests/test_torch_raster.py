@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 import torch_parity  # noqa: F401  (pins torch to one thread)
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 
 from octree_slam_tpu.core import camera as jcamera
 from octree_slam_tpu.core.types import BoundingBox as JBox

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE, close_share, port_config
 
 from octree_slam_tpu.config import SLAMConfig

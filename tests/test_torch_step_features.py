@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, assert_leaf_level_equal,
                           assert_step_parity, jax_frame, orbit_frames,
                           port_config, step_both, to_t, words)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from oracle import OracleOctree, morton_key
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import DEVICE, random_cloud, to_t, words, xla_blend
 
 from octree_slam_tpu.map import svo as jsvo

@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
+from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import orbit_frames, port_config, to_t
 
 from octree_slam_tpu.config import SLAMConfig

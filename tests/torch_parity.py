@@ -3,6 +3,9 @@
 Inputs are made with numpy from a seed and handed to both packages; data
 crosses as numpy arrays (u32 words as int32 bit patterns, u16 depth as
 int32). torch is pinned to one thread: the test workers share the cores.
+Each port test module runs at the lowest CPU priority (`yield_cpu`, an
+autouse fixture every CPU test file imports), so that the JAX package's long
+multi-device files, which set when a whole run ends, keep their share.
 The port's entry points put their tensors on the card unless told
 otherwise, so the CPU tests pass `device=DEVICE`; each package gets its own
 config (`port_config`).
@@ -11,8 +14,11 @@ config (`port_config`).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
+import pytest
 import torch
 
 from octree_slam_tpu_torch.config import SLAMConfig as PortConfig
@@ -22,6 +28,52 @@ torch.set_num_threads(1)
 INVALID_KEY = 0x7FFFFFFF
 # where the parity tests run the port
 DEVICE = "cpu"
+
+
+def _set_priority(nice: int) -> None:
+    """Give every thread of this process the nice value `nice` (Linux keeps
+    one a thread; threads started later inherit their creator's)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.setpriority(os.PRIO_PROCESS, int(tid), nice)
+        except OSError:  # the thread ended meanwhile
+            pass
+
+
+@functools.cache
+def _priority_restorable() -> bool:
+    """Whether this process may lower a nice value again (root, or a
+    large enough RLIMIT_NICE): without that a worker would stay at the
+    lowest priority for the JAX files it runs after a port test."""
+    if not os.path.isdir("/proc/self/task"):
+        return False
+    base = os.getpriority(os.PRIO_PROCESS, 0)
+    try:
+        os.setpriority(os.PRIO_PROCESS, 0, base + 1)
+        os.setpriority(os.PRIO_PROCESS, 0, base)
+    except OSError:
+        return False
+    return True
+
+
+@pytest.fixture(scope="module", autouse=True)
+def yield_cpu():
+    """Run the test module (its module fixtures too) at nice 19 and
+    restore the worker's priority after it.
+
+    The test workers share the cores, and the JAX package's multi-device
+    files (tests/test_run2d.py takes about 1,100 s alone) run from the
+    start of a whole run to its end: at the lowest priority the port's
+    tests take the cores those leave idle instead of slowing them."""
+    if not _priority_restorable():
+        yield
+        return
+    base = os.getpriority(os.PRIO_PROCESS, 0)
+    _set_priority(19)
+    try:
+        yield
+    finally:
+        _set_priority(base)
 
 
 def port_config(jax_cfg) -> PortConfig:
