@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   3. kernel vs plain: each hand-written kernel against its plain PyTorch
      version on the card, bit for bit, with both times: per call including
      the launch (CUDA events, median of 50) and on the device alone
-     (torch.profiler, mean of 50), beside the kernel's bound (the larger of
+     (50 calls replayed from a CUDA graph, their mean), beside the kernel's bound (the larger of
      its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
      from the shapes of the inputs) and its share of that bound;
   4. main path: the 14-frame synthetic orbit of bench.py (640x480, depth 9,
@@ -24,8 +24,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the CPU (the plain versions the CPU tests hold against the JAX
      package) must agree, and so must the slab-cone, exact-march and
      hybrid renders of its last frame, their dense mirror and their slab
-     word buffer; then a stream with the keyframe anchor, the saturation
-     gate and the directory cache on, rendered by the hybrid, on both;
+     word buffer; the hybrid with each band knob and the slab cone in
+     each composite mode (its accumulate sums equal); then a stream with
+     the keyframe anchor, the saturation gate and the directory cache on,
+     rendered by the hybrid, on both;
   6. the slab cone at full width: the same orbit through step("cone");
   7. the exact march at full width: the same orbit through
      step("cone_march"), every frame eager, with the march's trip counts
@@ -89,10 +91,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      textured rasterization, the voxel view as splats and as cubes; and
      the CLI's --save-mesh after the orbit (8 vertices and 12 faces a
      leaf). These paths reach no hand kernel; only the CLI's orbit
-     launches the two stencils.
+     launches the two stencils;
+ 19. knobs: bilateral_window, the bilateral of any window size, against
+     its plain version at sizes 3, 5, 9 and 11 on the main path's frame
+     and the recovery batch; the orbit through step("splat") at a 5x5
+     window (bilateral_window's main path); the 2 x 4 mesh's row slabs at
+     an 11x11 window, each slab's pyramid equal to the whole frame's; on
+     phase 10's map the hybrid with each band knob (sel_decimate,
+     depth_prio 0.5, crawl 4 at 6 and at 24 trips, compact_after 8) and
+     the slab cone in each mode (accumulate, blend 0.25, bilinear), each
+     with its PSNR against the exact march, render ms and device
+     operations; compact_after 8 gives the fixed-trip image bit for bit;
+     the crawl keeps the reference's contract (4 x 8 within 0.3 dB of
+     1 x 32) on the reference's own 80x60 scene, and its gap at full
+     width (4 x 6 against 1 x 24) is printed.
 Every orbit starts with the kernels' launch counts at 0 and must find each
-kernel launched once per frame (plus one batched launch per recovery
-attempt), or once per row slab and frame on the 2-D mesh. The last lines are the card's name and
+kernel of its path launched once per frame and the others never (plus one
+batched launch per recovery attempt), or once per row slab and frame on
+the 2-D mesh. The last lines are the card's name and
 power limit, a JSON line of the kernels, and {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
@@ -102,6 +118,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -116,10 +133,11 @@ import warnings
 import numpy as np
 import torch
 
-# Both kernels follow their plain versions op for op (same tap order, expf,
+# Every kernel follows its plain version op for op (same tap order, expf,
 # IEEE division, rintf / truncation, no FMA contraction), so the tolerance
-# is 0 mm: every output pixel must be equal. Each case is (shape, levels);
-# the first is the main path's, and its times go into the JSON line.
+# is 0 mm: every output pixel must be equal. KERNELS are the kernels of the
+# main path (the 7x7 window); each case is (shape, levels), the first the
+# main path's, whose times go into the JSON line.
 KERNELS = {
     "bilateral7x7": {
         "replaces": "octree_slam_tpu/sensor/pallas_ops.py:149",
@@ -135,6 +153,17 @@ KERNELS = {
                   ((4, 480, 640), 2)],
     },
 }
+# the bilateral of any other window size, the path of the config's
+# bilateral_kernel_size != 7 ([knobs]); its cases are (shape, kernel size),
+# the first its main path's: the splat orbit at a 5x5 window
+WINDOW_KERNEL = "bilateral_window"
+WINDOW_REPLACES = "octree_slam_tpu/sensor/image_ops.py:88"
+WINDOW_SIZE = 5
+WINDOW_CASES = [((480, 640), 5), ((4, 480, 640), 5), ((480, 640), 3),
+                ((4, 480, 640), 3), ((480, 640), 9), ((4, 480, 640), 9),
+                ((480, 640), 11), ((4, 480, 640), 11)]
+# the row-sharded pyramid's window in [knobs]: the widest case
+WINDOW_HALO_SIZE = 11
 SOURCE = "octree_slam_tpu_torch/csrc/sensor_stencils.cu"
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -219,13 +248,14 @@ def _window_taps(n: int, half: int, step: int) -> int:
                if 0 <= c + d < n)
 
 
-def bilateral_work(shape):
-    """(bytes, float32 operations) of one bilateral7x7 call: the input read
-    and the output written once; per in-image tap a subtract, two
-    multiplies, an add, the exp, a multiply and two adds (8), and a divide
-    and a round per pixel."""
+def bilateral_work(shape, kernel_size: int = 7):
+    """(bytes, float32 operations) of one bilateral call over the window
+    of radius kernel_size // 2: the input read and the output written once;
+    per in-image tap a subtract, two multiplies, an add, the exp, a
+    multiply and two adds (8), and a divide and a round per pixel."""
     b, h, w = (1, *shape) if len(shape) == 2 else shape
-    taps = b * _window_taps(h, 3, 1) * _window_taps(w, 3, 1)
+    half = kernel_size // 2
+    taps = b * _window_taps(h, half, 1) * _window_taps(w, half, 1)
     return 8 * b * h * w, 8 * taps + 2 * b * h * w
 
 
@@ -252,60 +282,76 @@ def bound(nbytes: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _case_calls(name, levels):
-    """(kernel, plain, work) for one case: callables of a depth tensor
-    returning a list of outputs, and the bound's (bytes, operations)."""
+def _case_calls(name, param):
+    """(kernel, plain, work, label) for one case: callables of a depth
+    tensor returning a list of outputs, the bound's (bytes, operations) of
+    a shape, and the case's label suffix. `param` is the gated pyramid's
+    levels or bilateral_window's kernel size."""
     from octree_slam_tpu_torch.sensor import cuda_ops
     if name == "bilateral7x7":
         return (lambda d: [cuda_ops.bilateral(d, 4.5, 40.0)],
                 lambda d: [cuda_ops.bilateral_plain(d, 4.5, 40.0)],
-                bilateral_work)
-    return (lambda d: cuda_ops.gated_pyramid(d, 120.0, levels),
-            lambda d: cuda_ops.gated_pyramid_plain(d, 120.0, levels),
-            lambda shape: gated_pyramid_work(shape, levels))
+                bilateral_work, "")
+    if name == WINDOW_KERNEL:
+        return (lambda d: [cuda_ops.bilateral(d, 4.5, 40.0, param)],
+                lambda d: [cuda_ops.bilateral_plain(d, 4.5, 40.0, param)],
+                lambda shape: bilateral_work(shape, param),
+                f" kernel_size {param}")
+    return (lambda d: cuda_ops.gated_pyramid(d, 120.0, param),
+            lambda d: cuda_ops.gated_pyramid_plain(d, 120.0, param),
+            lambda shape: gated_pyramid_work(shape, param),
+            f" levels {param}")
+
+
+def _kernel_case(name, shape, param, gen, runs=50):
+    """One kernel on a random depth of `shape` against its plain version:
+    fails unless every output pixel is equal; prints and returns the
+    times, the bound and the largest difference (0)."""
+    from octree_slam_tpu_torch.sensor import cuda_ops
+    from octree_slam_tpu_torch.utils.timing import device_ms, median_ms
+    kernel, plain, work, suffix = _case_calls(name, param)
+    d = _depth(shape, gen)
+    before = cuda_ops.LAUNCHES[name]
+    outs, refs = kernel(d), plain(d)
+    torch.cuda.synchronize()
+    label = f"{name} {shape}{suffix}"
+    check(cuda_ops.LAUNCHES[name] == before + 1,
+          f"{label}: the wrapper did not launch {name}")
+    check(len(outs) == len(refs), f"{label}: {len(outs)} outputs")
+    worst = n_off = n_all = 0
+    for out, ref in zip(outs, refs):
+        check(out.shape == ref.shape and out.dtype == ref.dtype,
+              f"{label}: {tuple(out.shape)} vs {tuple(ref.shape)}")
+        diff = (out.to(torch.int64) - ref).abs()
+        if diff.numel():
+            worst = max(worst, int(diff.max()))
+        n_off += int((diff > 0).sum())
+        n_all += diff.numel()
+    ms = median_ms(lambda: kernel(d), runs=runs)
+    pms = median_ms(lambda: plain(d), runs=runs)
+    dms = device_ms(lambda: kernel(d), runs=runs)
+    pdms = device_ms(lambda: plain(d), runs=runs)
+    bms, by = bound(*work(shape))
+    print(f"[kernel] {label}: {n_off} of {n_all} pixels differ | per call "
+          f"incl. launch (median of {runs}): kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms | device only (graph of {runs}): kernel {dms:.4f} "
+          f"ms, plain {pdms:.4f} ms | bound {bms:.5f} ms ({by}), "
+          f"{100 * bms / dms:.1f}% of it on the device")
+    check(n_off == 0, f"{label}: {n_off} of {n_all} pixels differ from the "
+          f"plain version, tolerance 0 mm")
+    return {"ms": ms, "plain_ms": pms, "device_ms": dms,
+            "plain_device_ms": pdms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "max_abs_err": worst}
 
 
 def phase_kernels():
-    from octree_slam_tpu_torch.utils.timing import device_ms, median_ms
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {}
     for name, spec in KERNELS.items():
-        worst = 0
-        for i, (shape, levels) in enumerate(spec["cases"]):
-            kernel, plain, work = _case_calls(name, levels)
-            d = _depth(shape, gen)
-            outs, refs = kernel(d), plain(d)
-            torch.cuda.synchronize()
-            label = f"{name} {shape}" + (f" levels {levels}" if levels else "")
-            check(len(outs) == len(refs), f"{label}: {len(outs)} outputs")
-            n_off = n_all = 0
-            for out, ref in zip(outs, refs):
-                check(out.shape == ref.shape and out.dtype == ref.dtype,
-                      f"{label}: {tuple(out.shape)} vs {tuple(ref.shape)}")
-                diff = (out.to(torch.int64) - ref).abs()
-                if diff.numel():
-                    worst = max(worst, int(diff.max()))
-                n_off += int((diff > 0).sum())
-                n_all += diff.numel()
-            ms = median_ms(lambda: kernel(d), runs=50)
-            pms = median_ms(lambda: plain(d), runs=50)
-            dms = device_ms(lambda: kernel(d), runs=50)
-            pdms = device_ms(lambda: plain(d), runs=50)
-            bms, by = bound(*work(shape))
-            print(f"[kernel] {label}: {n_off} of {n_all} pixels differ | "
-                  f"per call incl. launch (median of 50): kernel {ms:.4f} "
-                  f"ms, plain {pms:.4f} ms | device only (mean of 50): "
-                  f"kernel {dms:.4f} ms, plain {pdms:.4f} ms | bound "
-                  f"{bms:.5f} ms ({by}), {100 * bms / dms:.1f}% of it on "
-                  f"the device")
-            check(n_off == 0,
-                  f"{label}: {n_off} of {n_all} pixels differ from the plain "
-                  f"version, tolerance 0 mm")
-            if i == 0:
-                report[name] = {"ms": ms, "plain_ms": pms, "device_ms": dms,
-                                "plain_device_ms": pdms, "bound_ms": bms,
-                                "bound_by": by, "library_ms": None}
-        report[name]["max_abs_err"] = worst
+        cases = [_kernel_case(name, shape, levels, gen)
+                 for shape, levels in spec["cases"]]
+        report[name] = dict(cases[0], max_abs_err=max(
+            c["max_abs_err"] for c in cases))
     return report
 
 
@@ -444,9 +490,18 @@ def _check_orbit(smi: str, cfg, out, res, n_frames: int, pinned: bool):
         check(res["map_leaves"] > ORBIT_MAP_LEAVES // 2,
               f"{tag} map leaves {res['map_leaves']}")
     check(res["fb_hit_pixels"] > 0, f"{tag} framebuffer has no lit pixels")
-    for name in KERNELS:
-        check(res["launches"][name] == n_frames,
-              f"{tag} {name} launches {res['launches'][name]} != {n_frames}")
+    on_path = _path_kernels(cfg)
+    for name, n in res["launches"].items():
+        want = n_frames if name in on_path else 0
+        check(n == want, f"{tag} {name} launches {n} != {want}")
+
+
+def _path_kernels(cfg):
+    """The kernels a frame of `cfg` launches: the bilateral of its window
+    (bilateral7x7 for radius 3, else bilateral_window) and the pyramid."""
+    half = cfg.bilateral_kernel_size // 2
+    return ("bilateral7x7" if half == 3 else WINDOW_KERNEL,
+            "gated_pyramid5x5")
 
 
 def _march_trips(state, cfg):
@@ -619,7 +674,7 @@ def _psnr_db(fb, ref) -> float:
 def phase_fidelity(smi: str, cfg, hybrid_cfg, frames, gts):
     """Phase 10: cone_psnr_db and cone_hybrid_psnr_db as bench.py takes
     them, on a map built in one pass by splat frames, and the idempotence
-    of heal_for_march."""
+    of heal_for_march. Returns the two PSNRs."""
     from octree_slam_tpu_torch import convert, pipeline
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
     for f in frames[:-1]:
@@ -667,6 +722,7 @@ def phase_fidelity(smi: str, cfg, hybrid_cfg, frames, gts):
           f"changed {moved}; occupied dist cells {int(cache.occ.sum())}")
     check(not moved, f"[fidelity] a second heal changed {moved}")
     check(int(cache.occ.sum()) > 0, "[fidelity] the healed mirror is empty")
+    return {"cone_psnr_db": psnr, "cone_hybrid_psnr_db": hyb_psnr}
 
 
 def _profile_frame(smi, state, frames, cfg, frame_ms, render):
@@ -748,7 +804,8 @@ def _pixels_equal(a, b) -> float:
 def phase_reference():
     """The same small stream through step on the card and on the CPU, then
     its last frame again through the slab cone, the exact march and the
-    hybrid from copies of both states, then the stream once more with the
+    hybrid from copies of both states, the hybrid with each band knob and
+    the slab cone in each mode, then the stream once more with the
     keyframe anchor, the saturation gate and the directory cache on."""
     from octree_slam_tpu_torch import convert, pipeline
     from octree_slam_tpu_torch.map import mips
@@ -802,6 +859,7 @@ def phase_reference():
         check(same >= 0.99, f"[reference] {render}: only {same:.4f} of "
               f"framebuffer pixels agree")
         if render == "cone":
+            cone_st = dict(st)
             bufs = []
             for dev in ("cuda", "cpu"):
                 lv = st[dev].leaves
@@ -828,6 +886,45 @@ def phase_reference():
                            getattr(st["cpu"].accel, name))
             check(int(st["cpu"].accel.occ.sum()) > 0,
                   "[reference] the mirror is empty")
+
+    # the hybrid's band knobs from the same states, and the slab cone's
+    # modes on the cone frame's registry: the accumulate sums are integers
+    # below 2^24, exact in any order, so they must be equal
+    for name, change in BAND_KNOBS.items():
+        kcfg = dataclasses.replace(cfg, **change)
+        fb = {dev: pipeline.step(convert.clone_state(states[dev]), last[dev],
+                                 kcfg, render="cone_hybrid")[1].framebuffer
+              for dev in ("cuda", "cpu")}
+        same = _pixels_equal(fb["cuda"], fb["cpu"])
+        print(f"[reference] hybrid {name}: framebuffer pixels equal "
+              f"{same:.4f}")
+        check(bool(torch.isfinite(fb["cuda"]).all()) and same >= 0.99,
+              f"[reference] hybrid {name}: only {same:.4f} of pixels agree")
+
+    def slab(dev, **kw):
+        s_ = cone_st[dev]
+        return conesplat.render_cone_splat(
+            s_.leaves, s_.pool.center, s_.pool.half_size, s_.pose,
+            cfg.focal_x, cfg.focal_y, spec=spec, depth=cfg.max_depth, **kw)
+
+    for name, kw in SLAB_MODES.items():
+        a, b = slab("cuda", **kw).cpu(), slab("cpu", **kw)
+        close = float(((a - b).abs().amax(-1) <= 1e-5).float().mean())
+        print(f"[reference] slab {name}: pixels within 1e-5 {close:.4f}")
+        check(bool(torch.isfinite(a).all()) and close >= 0.99,
+              f"[reference] slab {name}: only {close:.4f} of pixels agree")
+    sums = []
+    for dev in ("cuda", "cpu"):
+        lv = cone_st[dev].leaves
+        live = (torch.arange(lv.keys.shape[0], device=dev) < lv.count) \
+            & (lv.keys >= 0)
+        sums.append(conesplat.slab_scatter_add(
+            lv.vals, lv.keys, live, cone_st[dev].pool.center,
+            cone_st[dev].pool.half_size, cone_st[dev].pose, cfg.focal_x,
+            cfg.focal_y, spec=spec, depth=cfg.max_depth))
+    check(int((sums[1][:, 0] > 0).sum()) > 0,
+          "[reference] the accumulate sums are empty")
+    _differing("accumulate sums", *sums, limit=0.0)
 
     # every optional branch of the step at once, rendered by the hybrid
     fcfg = dataclasses.replace(cfg, track_keyframe=True, saturation_gate=True,
@@ -1343,17 +1440,29 @@ def _checker(size=256, block=32):
     return rgb.astype(np.uint8)
 
 
+def _write_textured_obj(path, v, n, f, uv):
+    """A textured OBJ: 'v' and 'vn' lines a vertex, a 'vt' line a face
+    corner, faces as v/vt/vn (the port's save_obj, like the reference's,
+    writes no texcoords)."""
+    f1 = f.astype(np.int64) + 1
+    t1 = np.arange(1, 3 * len(f) + 1).reshape(-1, 3)
+    with open(path, "w") as out:
+        for fmt, rows in (("v %.6f %.6f %.6f", v), ("vt %.6f %.6f",
+                                                    uv.reshape(-1, 2)),
+                          ("vn %.6f %.6f %.6f", n),
+                          ("f %d/%d/%d %d/%d/%d %d/%d/%d",
+                           np.stack([f1, t1, f1], -1).reshape(-1, 9))):
+            out.write("\n".join(fmt % tuple(r) for r in rows.tolist()))
+            out.write("\n")
+
+
 def _write_assets(d, name, n_sphere, n_torus):
-    """The mesh through the port's save_obj (with its texcoords) and the
-    checker through its BMP writer; returns (obj path, bmp path, faces)."""
-    from octree_slam_tpu_torch.core.types import BoundingBox, Mesh
-    from octree_slam_tpu_torch.io import bmp, obj
+    """The mesh as a textured OBJ and the checker through the port's BMP
+    writer; returns (obj path, bmp path, faces)."""
+    from octree_slam_tpu_torch.io import bmp
     v, n, f, uv = offline_mesh(n_sphere, n_torus)
-    t = torch.from_numpy
-    mesh = Mesh(t(v), t(n), t(np.ones_like(v)), t(f), t(uv),
-                BoundingBox(t(v.min(0)), t(v.max(0))))
     paths = (os.path.join(d, f"{name}.obj"), os.path.join(d, f"{name}.bmp"))
-    obj.save_obj(paths[0], mesh, with_texcoords=True)
+    _write_textured_obj(paths[0], v, n, f, uv)
     bmp.save_bmp(paths[1], _checker())
     return paths[0], paths[1], len(f)
 
@@ -1611,6 +1720,218 @@ def phase_offline(smi: str, profile=None):
               f"{ORBIT_FRAMES}")
     return launches
 
+
+# ------------------------------------------------------------------ [knobs]
+
+# the hybrid's band knobs on phase 10's map, each beside bench.py's band
+# (crawl 1 x 24 trips)
+BAND_BASE = "crawl=1 x 24"
+BAND_KNOBS = {
+    "sel_decimate": {"cone_band_sel_decimate": True},
+    "depth_prio=0.5": {"cone_band_depth_prio": 0.5},
+    "crawl=4 x 6": {"cone_band_crawl": 4, "cone_band_iters": 6},
+    "crawl=4 x 24": {"cone_band_crawl": 4},
+    "compact_after=8": {"cone_band_compact_after": 8},
+}
+# the reference's contract for the crawl (tests/test_hybrid.py:155-195):
+# crawl 4 x 8 trips within CRAWL_DB_TOL of crawl 1 x 32 on its scene of six
+# hybrid frames at 80x60, depth 7, 4 cm leaves
+CRAWL_DB_TOL = 0.3
+# the slab cone's composite modes on the same map
+SLAB_MODES = {"accumulate": {"accumulate": True},
+              "blend=0.25": {"blend": 0.25}, "bilinear": {"bilinear": True}}
+# rounds of the renders' timing: each round times every variant once, in
+# turns, so that the host's drift falls on all of them alike
+KNOB_RENDER_RUNS = 9
+
+
+def _render_table(renders, ref):
+    """{name: PSNR against `ref`, render ms and device operations} of the
+    render callables in `renders`: the median of KNOB_RENDER_RUNS rounds of
+    CUDA-event times, one call of each variant a round, and the kernels,
+    copies and fills of one call as torch.profiler traces them."""
+    from torch.profiler import ProfilerActivity, profile
+    from octree_slam_tpu_torch.utils.timing import EventTimer
+    table = {}
+    for name, fn in renders.items():
+        fb = fn()
+        check(bool(torch.isfinite(fb).all()),
+              f"[knobs] {name}: the image is not finite")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        table[name] = {"psnr_db": _psnr_db(fb, ref), "device_ops": sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)}
+    timer = EventTimer()
+    for _ in range(KNOB_RENDER_RUNS):
+        for name, fn in renders.items():
+            with timer.time(name):
+                fn()
+    for name in renders:
+        table[name]["render_ms"] = statistics.median(timer.ms(name))
+    return table
+
+
+def _crawl_contract(smi):
+    """crawl 4 x 8 against crawl 1 x 32 on the reference's scene for that
+    contract, each against the exact march; returns the gap in dB."""
+    from octree_slam_tpu_torch import SLAMConfig, convert, pipeline
+    from octree_slam_tpu_torch.render import hybrid
+    from octree_slam_tpu_torch.sensor import sources
+    cfg = SLAMConfig(width=80, height=60, focal_x=70.0, focal_y=70.0,
+                     pyramid_depth=2, pyramid_iters=(4, 4),
+                     voxel_resolution=0.04, max_depth=7,
+                     node_capacity=1 << 17, leaf_capacity=1 << 15,
+                     max_march_iters=64)
+    scene = sources.default_scene("cuda")
+    state = pipeline.init_state(
+        cfg, initial_pose=sources.orbit_pose(0.0, device="cuda"),
+        device="cuda")
+    for i in range(6):
+        frame = sources.render_frame(
+            scene, sources.orbit_pose(i * 0.015, radius=2.0, device="cuda"),
+            cfg.focal_x, cfg.focal_y, width=cfg.width, height=cfg.height)
+        state, out = pipeline.step(state, frame, cfg, render="cone_hybrid")
+    _, march = pipeline.step(convert.clone_state(state), frame, cfg,
+                             render="cone_march")
+    psnr = {k: _psnr_db(hybrid.render_cone_hybrid(
+        state.leaves, state.accel, state.pool.center, state.pool.half_size,
+        out.pose, cfg.focal_x, cfg.focal_y, spec=pipeline._slab_spec(cfg),
+        depth=cfg.max_depth, dist_level=pipeline._accel_level(cfg),
+        band_iters=iters, crawl=k), march.framebuffer)
+        for k, iters in ((1, 32), (4, 8))}
+    gap = psnr[1] - psnr[4]
+    print(f"[knobs] {smi} | the reference's crawl scene (80x60, depth 7): "
+          f"crawl 1 x 32 {psnr[1]:.4f} dB, crawl 4 x 8 {psnr[4]:.4f} dB, "
+          f"gap {gap:.4f} dB (bound {CRAWL_DB_TOL})")
+    check(gap < CRAWL_DB_TOL,
+          f"[knobs] crawl 4 x 8 is {gap:.3f} dB below crawl 1 x 32 on the "
+          f"reference's scene")
+    return gap
+
+
+def _window_phase(smi, cfg, frames, gts):
+    """[knobs] part 1: bilateral_window against its plain version at every
+    case; the splat orbit at a WINDOW_SIZE window through step; the 2 x 4
+    mesh's row-sharded pyramid at a WINDOW_HALO_SIZE window against the
+    whole frame's. Returns (the kernel's report, the orbit's launches)."""
+    from octree_slam_tpu_torch.parallel import distributed
+    from octree_slam_tpu_torch.sensor import cuda_ops, tracking
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [_kernel_case(WINDOW_KERNEL, shape, k, gen, runs=20)
+             for shape, k in WINDOW_CASES]
+    report = dict(cases[0], max_abs_err=max(c["max_abs_err"]
+                                            for c in cases))
+
+    wcfg = dataclasses.replace(cfg, bilateral_kernel_size=WINDOW_SIZE)
+    launches, _, _ = phase_orbit(smi, wcfg, frames, gts, "splat", None,
+                                 label=f"splat+bilateral{WINDOW_SIZE}",
+                                 pinned=False)
+
+    hcfg = dataclasses.replace(cfg, bilateral_kernel_size=WINDOW_HALO_SIZE)
+    sensor = distributed.row_sharded_sensor(
+        hcfg, distributed.make_mesh2(2, 4))
+    off, slab_launches = 0, 0
+    for f in frames:
+        before = cuda_ops.LAUNCHES[WINDOW_KERNEL]
+        whole, _ = sensor(f)
+        slab_launches += cuda_ops.LAUNCHES[WINDOW_KERNEL] - before
+        for a, b in zip(whole, tracking.build_pyramid(f.depth, f.color,
+                                                      hcfg)):
+            off += sum(int((x != y).sum()) for x, y in zip(a, b))
+    print(f"[knobs] mesh (2, 4) at a {WINDOW_HALO_SIZE}x{WINDOW_HALO_SIZE} "
+          f"window, halo {distributed.pyramid_halo(hcfg)} rows: slab "
+          f"pyramids of {len(frames)} frames, {off} values differ from the "
+          f"whole frame's; {slab_launches} {WINDOW_KERNEL} launches")
+    check(off == 0, f"[knobs] {off} slab pyramid values differ at "
+          f"kernel_size {WINDOW_HALO_SIZE}")
+    check(slab_launches == 2 * len(frames),
+          f"[knobs] {slab_launches} slab launches, expected 2 a frame")
+    return report, launches
+
+
+def phase_knobs(smi: str, cfg, hybrid_cfg, frames, gts, fidelity):
+    """Phase 19: what the reference runs beyond the defaults, at full width.
+    The bilateral of other window sizes (_window_phase); then on phase 10's
+    map the hybrid's band knobs, each through step("cone_hybrid"), and the
+    slab cone's modes, each with its PSNR against the exact march, its
+    render time (CUDA events) and its device operations a render. The
+    compacting march must give the fixed-trip image bit for bit, the base
+    hybrid and the default slab mode must keep phase 10's PSNRs, and the
+    crawl must keep the reference's contract on the reference's scene
+    (_crawl_contract); its gap at full width is printed. Returns
+    (bilateral_window's report, the 5x5 orbit's launches)."""
+    from octree_slam_tpu_torch import convert, pipeline
+    from octree_slam_tpu_torch.render import conesplat, hybrid
+    t_phase = time.perf_counter()
+    report, launches = _window_phase(smi, cfg, frames, gts)
+
+    # phase 10's map: 13 splat frames, the last frame by each render
+    state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
+    for f in frames[:-1]:
+        state, _ = pipeline.step(state, f, cfg, render="splat")
+    _, march = pipeline.step(convert.clone_state(state), frames[-1], cfg,
+                             render="cone_march")
+    ref = march.framebuffer
+    lvl = pipeline._accel_level(cfg)
+    renders, images = {}, {}
+    for name, change in {BAND_BASE: {}, **BAND_KNOBS}.items():
+        kcfg = dataclasses.replace(hybrid_cfg, **change)
+        st, out = pipeline.step(convert.clone_state(state), frames[-1], kcfg,
+                                render="cone_hybrid")
+
+        def render(st=st, kcfg=kcfg, pose=out.pose):
+            return hybrid.render_cone_hybrid(
+                st.leaves, st.accel, st.pool.center, st.pool.half_size, pose,
+                kcfg.focal_x, kcfg.focal_y, spec=pipeline._slab_spec(kcfg),
+                depth=kcfg.max_depth, dist_level=lvl,
+                max_range=kcfg.max_range, start_dist=kcfg.start_dist,
+                band_cap=kcfg.cone_band_cap, band_iters=kcfg.cone_band_iters,
+                crawl=kcfg.cone_band_crawl,
+                fused_dist=kcfg.cone_band_fused_dist,
+                depth_prio=kcfg.cone_band_depth_prio,
+                compact_after=kcfg.cone_band_compact_after,
+                sel_decimate=kcfg.cone_band_sel_decimate)
+
+        check(torch.equal(render(), out.framebuffer),
+              f"[knobs] {name}: the timed render is not the step's")
+        renders[name], images[name] = render, out.framebuffer
+    band = _render_table(renders, ref)
+    for name, fb in images.items():
+        band[name]["pixels_differing_from_base"] = int(
+            (fb != images[BAND_BASE]).any(-1).sum())
+    del renders, images
+    print(f"[knobs] {smi} | hybrid band knobs, {HYBRID_BAND} unless "
+          f"named: " + json.dumps(band))
+    check(abs(band[BAND_BASE]["psnr_db"] - fidelity["cone_hybrid_psnr_db"])
+          < 0.01, "[knobs] the base hybrid's PSNR moved from phase 10's")
+    check(band["compact_after=8"]["pixels_differing_from_base"] == 0,
+          "[knobs] the compacting march's image is not the fixed-trip one")
+    crawl_gap = band[BAND_BASE]["psnr_db"] - band["crawl=4 x 6"]["psnr_db"]
+    print(f"[knobs] crawl 4 x 6 against crawl 1 x 24 at full width: "
+          f"{crawl_gap:.4f} dB below")
+    _crawl_contract(smi)
+
+    st, out = pipeline.step(convert.clone_state(state), frames[-1], cfg,
+                            render="cone")
+    del state
+
+    def slab(**kw):
+        return conesplat.render_cone_splat(
+            st.leaves, st.pool.center, st.pool.half_size, out.pose,
+            cfg.focal_x, cfg.focal_y, spec=pipeline._slab_spec(cfg),
+            depth=cfg.max_depth, **kw)
+
+    check(torch.equal(slab(), out.framebuffer),
+          "[knobs] the default slab render is not the step's")
+    modes = _render_table({name: functools.partial(slab, **kw) for name, kw
+                           in {"min": {}, **SLAB_MODES}.items()}, ref)
+    print(f"[knobs] {smi} | slab cone modes: " + json.dumps(modes))
+    check(abs(modes["min"]["psnr_db"] - fidelity["cone_psnr_db"]) < 0.01,
+          "[knobs] the default slab mode's PSNR moved from phase 10's")
+    print(f"[knobs] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return report, launches
 
 
 # the [multichip] phase: the map shards of each mesh, and the 2-D mesh's
@@ -2066,7 +2387,7 @@ def main(argv=None):
             smi, hybrid_cfg if render == "cone_hybrid" else cfg, frames, gts,
             render, args.profile)
     launches.update(phase_features(smi, cfg, frames, gts, splat_registry))
-    phase_fidelity(smi, cfg, hybrid_cfg, frames, gts)
+    fidelity = phase_fidelity(smi, cfg, hybrid_cfg, frames, gts)
     state, app_cfg, launches["app"] = phase_app(smi, cfg, frames, gts)
     phase_checkpoint(smi, state, app_cfg, frames[-1])
     phase_tiering(smi, state, app_cfg)
@@ -2078,17 +2399,25 @@ def main(argv=None):
     launches["multichip"] = phase_multichip(smi, cfg, frames, gts,
                                             splat_registry)
     launches["offline"] = phase_offline(smi, args.profile)
-    # no single PyTorch call computes either function, so library_ms is null
+    window = f"splat+bilateral{WINDOW_SIZE}"
+    report[WINDOW_KERNEL], launches[window] = phase_knobs(
+        smi, cfg, hybrid_cfg, frames, gts, fidelity)
+    # each kernel's main path: the splat orbit at the window that runs it
+    main_path = {name: "splat" for name in KERNELS}
+    main_path[WINDOW_KERNEL] = window
+    replaces = {name: spec["replaces"] for name, spec in KERNELS.items()}
+    replaces[WINDOW_KERNEL] = WINDOW_REPLACES
+    # no single PyTorch call computes any of them, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": spec["replaces"],
-                "launches": launches["splat"][name],
-                "launches_per_frame": launches["splat"][name] / ORBIT_FRAMES,
-                "launches_by_path": {path: n[name]
-                                     for path, n in launches.items()},
+                "replaces": replaces[name], "main_path": path,
+                "launches": launches[path][name],
+                "launches_per_frame": launches[path][name] / ORBIT_FRAMES,
+                "launches_by_path": {p: n.get(name, 0)
+                                     for p, n in launches.items()},
                 # the recovery pyramid's launches take the candidates as
                 # one batch
                 "relocalize_launch_batch": RELOC_CANDIDATES,
-                **report[name]} for name, spec in KERNELS.items()]
+                **report[name]} for name, path in main_path.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

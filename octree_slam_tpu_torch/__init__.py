@@ -28,9 +28,10 @@ I/O (`io/obj.py`, `io/bmp.py`), the voxelizer and its A-buffer
 (`render/points.py`, `render/raster.py`), `render/renderer.Renderer`,
 `scene.Scene`, the fly camera and both viewers (`viewer.py`,
 `live_viewer.py`), and the CLI's `--save-mesh`. Both
-sensor stencils of the reference (the 7x7 bilateral filter and the 5x5
-gated subsample) run as hand-written CUDA kernels for sm_90a
-(`csrc/sensor_stencils.cu`, bound in `sensor/cuda_ops.py`); every other op
+sensor stencils of the reference (the bilateral filter, 7x7 or of any
+other window size, and the 5x5 gated subsample) run as hand-written CUDA
+kernels for sm_90a (`csrc/sensor_stencils.cu`, bound in
+`sensor/cuda_ops.py`); every other op
 is plain PyTorch, as the reference reaches no TPU kernel anywhere else. On
 CPU tensors the kernel wrappers run their plain PyTorch versions instead.
 
@@ -42,9 +43,10 @@ mesh and texture readers, `core.camera.make_camera`, the viewers'
 `--device` and the meshes of `parallel.distributed`) put them on the card unless the caller names another device,
 as the CPU tests do; without a card they raise.
 
-`pipeline.check_supported` raises where the reference does and for four
-band knobs of the hybrid that are not ported (`render/hybrid.py` says
-why).
+`pipeline.check_supported` raises where the reference's step does: for an
+unknown render, and for the hybrid without the dense mirror. The
+hybrid's band knobs and the slab cone's three composite modes are ported
+with the rest (`render/hybrid.py`, `render/conesplat.py`).
 """
 
 from octree_slam_tpu_torch.config import SLAMConfig

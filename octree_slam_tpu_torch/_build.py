@@ -110,6 +110,11 @@ def load(lib_path: Path) -> ctypes.CDLL:
     p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     lib.oslam_bilateral7x7.argtypes = [p, p, i, i, i, d, f, p]
     lib.oslam_bilateral7x7.restype = i
+    # an older source (a baseline of examples/compare_stencil_kernels.py)
+    # may lack bilateral_window
+    if hasattr(lib, "oslam_bilateral_window"):
+        lib.oslam_bilateral_window.argtypes = [p, p, i, i, i, i, d, f, p]
+        lib.oslam_bilateral_window.restype = i
     lib.oslam_gated_pyramid5x5.argtypes = [p, p, p, i, i, i, f, i, p]
     lib.oslam_gated_pyramid5x5.restype = i
     lib.oslam_error_string.argtypes = [i]

@@ -3,10 +3,8 @@
 The port keeps its own copy of the reference package's `SLAMConfig`: the
 same fields, defaults, properties and methods, so a configuration built
 for one package describes the same run in the other, field for field
-(tests/test_torch_config.py holds the two against each other). Fields that
-select a behaviour the port leaves out (four band knobs of the hybrid
-renderer) are kept, and `pipeline.check_supported` rejects their
-non-default values.
+(tests/test_torch_config.py holds the two against each other); the port
+runs every value of every field that the reference's step runs.
 """
 
 from __future__ import annotations

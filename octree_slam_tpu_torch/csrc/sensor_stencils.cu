@@ -4,6 +4,8 @@
 // octree_slam_tpu/sensor/pallas_ops.py (pl.pallas_call at :112):
 //
 //   bilateral7x7      <- pallas_ops.bilateral (:149), kind "bilateral"
+//   bilateral_window  <- the XLA path of image_ops.bilateral_filter
+//                        (:88-117), the bilateral of any other window size
 //   gated_pyramid5x5  <- pallas_ops.gated_window_mean (:160), kind "gated",
 //                        plus the caller's decimation in
 //                        image_ops.subsample_depth (:129-133), for one or
@@ -245,6 +247,79 @@ __global__ void __launch_bounds__(kBx * kBy)
   }
 }
 
+// --------------------------------------------------------- bilateral window
+
+// The bilateral of any radius `half` (window 2 half + 1), for the window
+// sizes the 7x7 kernel above does not take. A simple kernel: each thread
+// computes one output with the taps in the plain version's order, from a
+// (kWinTileH + 2 half) x (kWinTileW + 2 half) tile staged in dynamic shared
+// memory, and every tap tests the image by coordinate. At a radius r it
+// does (2r + 1)^2 exp-weighted taps a pixel over the same 8 bytes a pixel
+// as the 7x7 kernel, so it is bound by instruction issue as that one is.
+constexpr int kWinTileW = 32;              // output columns per block
+constexpr int kWinTileH = 16;              // output rows per block
+
+__host__ __device__ inline int win_smem_floats(int half) {
+  const int taps = 2 * half + 1;
+  return (kWinTileH + 2 * half) * (kWinTileW + 2 * half) + taps * taps;
+}
+
+__global__ void __launch_bounds__(kWinTileW * kWinTileH)
+    bilateral_window_kernel(const int32_t* __restrict__ in,
+                            int32_t* __restrict__ out, int H, int W,
+                            int half, double sig_s, float sig_d) {
+  extern __shared__ __align__(16) float win_smem[];
+  const int taps = 2 * half + 1;
+  const int span_w = kWinTileW + 2 * half, span_h = kWinTileH + 2 * half;
+  float* tile = win_smem;
+  float* space = win_smem + span_h * span_w;
+  const size_t plane = (size_t)H * W;
+  const int32_t* src = in + blockIdx.z * plane;
+  int32_t* dst = out + blockIdx.z * plane;
+  const int bx0 = blockIdx.x * kWinTileW, by0 = blockIdx.y * kWinTileH;
+  const int tid = threadIdx.y * kWinTileW + threadIdx.x;
+  constexpr int kThreads = kWinTileW * kWinTileH;
+
+  // space[i * taps + j] = (dx^2 + dy^2) * sig_s for dy = i - half,
+  // dx = j - half: formed in double and rounded once to float, as the
+  // plain version's Python scalar is when it meets a float32 tensor
+  for (int k = tid; k < taps * taps; k += kThreads) {
+    const int dy = k / taps - half, dx = k % taps - half;
+    space[k] = (float)((double)(dx * dx + dy * dy) * sig_s);
+  }
+  // entries outside the image are 0; the taps test the image by coordinate
+  for (int k = tid; k < span_h * span_w; k += kThreads) {
+    const int r = k / span_w, c = k - r * span_w;
+    const int gy = by0 - half + r, gx = bx0 - half + c;
+    tile[k] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  ? (float)__ldg(src + (size_t)gy * W + gx)
+                  : 0.0f;
+  }
+  __syncthreads();
+
+  const int y = by0 + threadIdx.y, x = bx0 + threadIdx.x;
+  if (y >= H || x >= W) return;
+  // the window's top-left tap; the centre is `half` rows and columns in
+  const float* t = tile + threadIdx.y * span_w + threadIdx.x;
+  const float c = t[half * span_w + half];
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int i = 0; i < taps; ++i) {
+    const int gy = y - half + i;
+    if (gy < 0 || gy >= H) continue;
+    for (int j = 0; j < taps; ++j) {
+      const int gx = x - half + j;
+      if (gx < 0 || gx >= W) continue;
+      const float nb = t[i * span_w + j];
+      const float diff = c - nb;
+      const float wgt = expf(-(space[i * taps + j] + diff * diff * sig_d));
+      s1 = s1 + nb * wgt;
+      s2 = s2 + wgt;
+    }
+  }
+  // the centre tap has weight 1, so s2 >= 1
+  dst[(size_t)y * W + x] = (int)rintf(s1 / s2);
+}
+
 // ------------------------------------------------------------ gated pyramid
 
 constexpr int kGx = 32, kGy = 16;          // threads per block
@@ -354,6 +429,34 @@ int oslam_bilateral7x7(const void* in, void* out, int B, int H, int W,
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   bilateral7x7_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, H, W, sig_s, sig_d, vec);
+  return (int)cudaGetLastError();
+}
+
+// in, out: int32[B, H, W] contiguous on the current device; half >= 0 is
+// the window's radius. Radii whose tile passes 48 KB of shared memory opt
+// in to more; one past the block's limit is refused (cudaErrorInvalidValue).
+int oslam_bilateral_window(const void* in, void* out, int B, int H, int W,
+                           int half, double sig_s, float sig_d,
+                           void* stream) {
+  if (half < 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * (size_t)win_smem_floats(half);
+  if (smem > 48 * 1024) {
+    int dev = 0, most = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (smem > (size_t)most) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        bilateral_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(kWinTileW, kWinTileH);
+  const dim3 grid((W + kWinTileW - 1) / kWinTileW,
+                  (H + kWinTileH - 1) / kWinTileH, B);
+  bilateral_window_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)in, (int32_t*)out, H, W, half, sig_s, sig_d);
   return (int)cudaGetLastError();
 }
 

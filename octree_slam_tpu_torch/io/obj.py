@@ -107,16 +107,12 @@ def load_obj(path: str, device="cuda") -> Mesh:
                 bbox=BoundingBox(t(lo), t(hi)))
 
 
-def save_obj(path: str, mesh: Mesh, with_texcoords: bool = False) -> None:
+def save_obj(path: str, mesh: Mesh) -> None:
     """Write a Mesh as Wavefront OBJ: vertex colours as the 'v x y z r g b'
     extension (read back by load_obj, MeshLab and Blender), per-vertex
     'vn' lines referenced by the faces. The reference displays voxel-cube
     meshes (voxelGridToMesh, voxelization.cu:325-379) but never exports
-    them. with_texcoords also writes the per-corner texcoords, a 'vt' line
-    a corner with faces as v/vt/vn, for a textured mesh that load_obj is to
-    read back: its one caller is chip_smoke.py, which writes its textured
-    test mesh so. The reference's writer has no such option; its files are
-    this one's without it."""
+    them."""
     v = mesh.vertices.detach().cpu().numpy().astype(np.float64)
     n = mesh.normals.detach().cpu().numpy().astype(np.float64)
     c = mesh.colors.detach().cpu().numpy().astype(np.float64)
@@ -141,18 +137,7 @@ def save_obj(path: str, mesh: Mesh, with_texcoords: bool = False) -> None:
                  np.concatenate([v, c], axis=1))
         else:
             rows(out, "v %.6f %.6f %.6f", v)
-        if with_texcoords:
-            uv = mesh.texcoords.detach().cpu().numpy().astype(np.float64)
-            rows(out, "vt %.6f %.6f", uv.reshape(-1, 2))
-            t1 = np.arange(1, 3 * f1.shape[0] + 1).reshape(-1, 3)
-            if has_n:
-                rows(out, "vn %.6f %.6f %.6f", n)
-                rows(out, "f %d/%d/%d %d/%d/%d %d/%d/%d",
-                     np.stack([f1, t1, f1], -1).reshape(-1, 9))
-            else:
-                rows(out, "f %d/%d %d/%d %d/%d",
-                     np.stack([f1, t1], -1).reshape(-1, 6))
-        elif has_n:
+        if has_n:
             rows(out, "vn %.6f %.6f %.6f", n)
             rows(out, "f %d//%d %d//%d %d//%d", f1[:, [0, 0, 1, 1, 2, 2]])
         else:

@@ -204,16 +204,18 @@ class RowSlab(NamedTuple):
 
 
 def pyramid_halo(cfg: SLAMConfig) -> int:
-    """Raw rows each slab reads beyond its own on each side. The deepest
-    level D = pyramid_depth - 1 reads level-0 rows 2^(D+1) - 2 beyond
-    2^D y (each gated level reads 2 rows of the one before, a 5x5 window
-    at (2y, 2x)), the normals read one more row of that level, whose window
-    centre is the next slab's first row, and the bilateral reads 3 raw rows
-    around each filtered one: 3 + 2^(D+1) - 2 rows. Rounded up to a
-    multiple of 2^D, so that a padded slab starts on a sample of every
-    level (12 for the default three levels)."""
+    """Raw rows each slab reads beyond its own on each side. The normals
+    of the deepest level D = pyramid_depth - 1 read one row past the
+    slab's last, whose pixel is the gated mean centred on the next slab's
+    first level-0 row y1; that mean reads level-0 rows up to
+    y1 + 2^(D+1) - 2 (each gated level reads 2 rows of the one before, a
+    5x5 window at (2y, 2x)), and the bilateral reads
+    half = bilateral_kernel_size // 2 raw rows around each filtered one:
+    half + 2^(D+1) - 1 rows past the slab's last. Rounded up to a multiple
+    of 2^D, so that a padded slab starts on a sample of every level (12
+    for the default three levels and 7x7 window)."""
     d = cfg.pyramid_depth - 1
-    need = 3 + (1 << (d + 1)) - 2
+    need = cfg.bilateral_kernel_size // 2 + (1 << (d + 1)) - 1
     unit = 1 << d
     return -(-need // unit) * unit
 
@@ -715,7 +717,9 @@ def render_sharded_hybrid(smap: ShardedMap, world_T_cam, fx, fy,
     """The hybrid (render/hybrid.py) over the sharded map: the slab words
     as render_sharded_cone makes them, the composite with its per-pixel
     first-hit seeds, then the band select, seeded march and merge over the
-    union leaf mirror, once, on the first shard's device."""
+    union leaf mirror, once, on the first shard's device. As in the
+    reference, cfg.cone_band_sel_decimate is not passed on: the 2-D render
+    always selects the full top-C."""
     spec = pipeline._slab_spec(cfg)
     fb, _w, z_first = conesplat.composite_min_words(
         slab_words_sharded(smap, world_T_cam, fx, fy, cfg, spec),
@@ -729,8 +733,7 @@ def render_sharded_hybrid(smap: ShardedMap, world_T_cam, fx, fy,
         band_cap=cfg.cone_band_cap, band_iters=cfg.cone_band_iters,
         crawl=cfg.cone_band_crawl, fused_dist=cfg.cone_band_fused_dist,
         depth_prio=cfg.cone_band_depth_prio,
-        compact_after=cfg.cone_band_compact_after,
-        sel_decimate=cfg.cone_band_sel_decimate)
+        compact_after=cfg.cone_band_compact_after)
 
 
 # ------------------------------------------------- the 2-D mesh's step

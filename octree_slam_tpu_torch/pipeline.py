@@ -2,7 +2,8 @@
 octree_slam_tpu/pipeline.py).
 
 `step` runs one frame as plain eager PyTorch on whatever device the state
-lives on: the depth pyramid (one bilateral launch + one gated-pyramid
+lives on: the depth pyramid (one bilateral launch, bilateral7x7 or at
+another cfg.bilateral_kernel_size bilateral_window, + one gated-pyramid
 launch for both subsampled levels), 19 Gauss-Newton ICP iterations against
 the previous frame (or, with cfg.track_keyframe, against the keyframe
 anchor), the SVO insert with its unique-cap remainder pages, the
@@ -48,16 +49,18 @@ pager is a Python loop that reads `unique_overflow` back once per page
 lazy_interior and once per lazy hybrid frame. A lazy hybrid frame's
 re-stamp trigger rides the pager's first read. The exact march reads its
 exit tests every raycast.EXIT_CHECK_EVERY trips; the hybrid's band march
-has a fixed trip count and reads nothing. So splat, slab-cone and "none"
-frames take one read, a lazy hybrid frame two.
+has a fixed trip count and reads nothing (but with
+cfg.cone_band_compact_after < cfg.cone_band_iters, whose march tests its
+exit as the exact march does). So splat, slab-cone and "none" frames take
+one read, a lazy hybrid frame two.
 
 `grow_state` doubles the node pool and/or the leaf registry between
 frames (the app loop's growth policy).
 
 `check_supported` raises where the reference raises (the hybrid without
-the dense mirror) or would silently render black (an unknown render), and
-for the four band knobs of the hybrid that are not ported (see
-render/hybrid.py).
+the dense mirror) or would silently render black (an unknown render);
+every band knob of the hybrid (render/hybrid.py) and every
+bilateral_kernel_size runs.
 """
 
 from __future__ import annotations
@@ -142,28 +145,14 @@ class StepOutput(NamedTuple):
 
 
 def check_supported(cfg: SLAMConfig, render: str = "splat") -> None:
-    """Raise for a (cfg, render) pair `step` cannot run: ValueError for an
-    unknown render and for the hybrid without the dense mirror its band
-    march samples, NotImplementedError for the hybrid's four band knobs
-    that are not ported."""
+    """Raise ValueError for a (cfg, render) pair `step` cannot run: an
+    unknown render, or the hybrid without the dense mirror its band march
+    samples (the reference's assert)."""
     if render not in RENDER_MODES:
         raise ValueError(f"render={render!r} is none of {RENDER_MODES}")
-    if render != "cone_hybrid":
-        return
-    if not cfg.use_dense_mips:
+    if render == "cone_hybrid" and not cfg.use_dense_mips:
         raise ValueError("render='cone_hybrid' needs cfg.use_dense_mips "
                          "(the band march samples the dense leaf mip)")
-    unported = {
-        "cone_band_sel_decimate": cfg.cone_band_sel_decimate,
-        "cone_band_crawl > 1": cfg.cone_band_crawl > 1,
-        "cone_band_depth_prio > 0": cfg.cone_band_depth_prio > 0.0,
-        "cone_band_compact_after < cone_band_iters":
-            cfg.cone_band_compact_after < cfg.cone_band_iters,
-    }
-    bad = [name for name, hit in unported.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            f"not ported to octree_slam_tpu_torch: {', '.join(bad)}")
 
 
 def _accel_level(cfg: SLAMConfig) -> int:

@@ -40,12 +40,29 @@ the leaf-LOD range read leaves where the full march reads a coarser level;
 and a ray whose seed window shows nothing at any slab although geometry
 lies nearer starts past that geometry.
 
-Four knobs of the reference are not ported, each measured and rejected by
-the reference's own authors: `sel_decimate` (a 2x2-block top-C, off by
-default), `crawl > 1` (K samples a trip: rejected), `depth_prio > 0` (a
-depth-jump term in the priority: a wash) and the compacting march
-(`compact_after < band_iters`: the fixed-trip shape is the production
-one). `band_march_merge` raises NotImplementedError for them.
+The reference's four experimental knobs, all off by default, are here
+as its SLAMConfig fields set them:
+  * `depth_prio > 0` maxes a depth-jump term into the priority before the
+    dilation: the jump of z_first against the left and upper neighbour
+    relative to the nearer depth (+inf read as 4 z_far), saturating at
+    30% of it, times depth_prio;
+  * `sel_decimate` takes the top C/4 of the priorities max-pooled at
+    stride 2 and expands each 2x2 block to its pixels (when C % 4 == 0
+    and the image's sides are even; the full top-C otherwise);
+  * `crawl = K > 1` takes K leaf samples a trip with one gather of the
+    values; it applies to the fixed-trip march only;
+  * `compact_after < band_iters` (with C/4 >= 128 lanes below C) selects
+    the reference's compacting march: single samples until no lane is
+    live, its live lanes sorted into C/4 lanes after compact_after trips.
+    The sort is left out here: lanes that are not live are never written,
+    so marching all C lanes gives the compacted march's image bit for bit
+    (tests/test_torch_band_knobs.py holds the two equal). Its exit is
+    tested every raycast.EXIT_CHECK_EVERY trips, one host read each, and
+    debug_band's `trips` counts the trips that had a live lane, as the
+    reference's does.
+The reference's authors measured each of them on their TPU and kept them
+off; chip_smoke.py's `[knobs]` phase reads each one's PSNR and render time
+on the card.
 """
 
 from __future__ import annotations
@@ -57,7 +74,8 @@ from octree_slam_tpu_torch.core import packing
 from octree_slam_tpu_torch.map import mips
 from octree_slam_tpu_torch.render import conesplat
 from octree_slam_tpu_torch.render.conesplat import SlabSpec
-from octree_slam_tpu_torch.render.raycast import (_ray_box, _spread3,
+from octree_slam_tpu_torch.render.raycast import (EXIT_CHECK_EVERY,
+                                                  _ray_box, _spread3,
                                                   make_rays)
 from octree_slam_tpu_torch.render.splat import LeafList
 
@@ -114,32 +132,57 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
                      sel_decimate: bool = False):
     """Steps 2-4 of the hybrid (band select, seeded march, merge) on a slab
     image and its z_first (conesplat's want_aux outputs). `fb` is not
-    written; the result is a new image."""
-    unported = {"sel_decimate": sel_decimate, "crawl > 1": crawl > 1,
-                "depth_prio > 0": depth_prio > 0.0,
-                "compact_after < band_iters": compact_after < band_iters}
-    bad = [name for name, hit in unported.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            f"band_march_merge: not ported (the reference measured and "
-            f"rejected them): {', '.join(bad)}")
+    written; the result is a new image. The knobs are the reference's (see
+    the module docstring)."""
     W, H = spec.width, spec.height
     n = W * H
     dev = fb.device
     C = min(band_cap if band_cap > 0 else max(128, n // 4), n)
+    C2 = max(128, C // 4)
 
     # --- band selection: the slab image's luminance gradient against the
-    # left and upper neighbour, max-pooled so that the band reaches
-    # grad_dilate pixels to each side of an edge. The stable descending
-    # sort resolves the many exact ties of the pooled priorities (every
-    # flat region reads 0) by pixel index, as the reference's does; the
-    # selected lanes are then put in raster order, so that adjacent lanes
-    # gather adjacent cells. ---
+    # left and upper neighbour (with depth_prio, maxed with the relative
+    # jump of z_first), max-pooled so that the band reaches grad_dilate
+    # pixels to each side of an edge. The stable descending sort resolves
+    # the many exact ties of the pooled priorities (every flat region reads
+    # 0) by index, as the reference's does; the selected lanes are then
+    # put in raster order, so that adjacent lanes gather adjacent cells. ---
     lum = fb[..., 0] * 0.299 + fb[..., 1] * 0.587 + fb[..., 2] * 0.114
     gx = (lum - torch.cat([lum[:, :1], lum[:, :-1]], dim=1)).abs()
     gy = (lum - torch.cat([lum[:1, :], lum[:-1, :]], dim=0)).abs()
-    prio = _pool_max(torch.maximum(gx, gy), grad_dilate)
-    sel = torch.sort(torch.argsort(-prio.reshape(-1), stable=True)[:C]).values
+    grad = torch.maximum(gx, gy)
+    if depth_prio > 0.0:
+        # occlusion boundaries between surfaces of one colour leave no
+        # luminance edge: the jump of z_first relative to the nearer
+        # depth, saturating at 30% of it (one slab of the ladder)
+        zf = torch.where(torch.isfinite(z_first), z_first, spec.z_far * 4.0)
+        left = torch.cat([zf[:, :1], zf[:, :-1]], dim=1)
+        up = torch.cat([zf[:1, :], zf[:-1, :]], dim=0)
+        znear2 = torch.minimum(zf, torch.minimum(left, up))
+        gz = torch.maximum((zf - left).abs(), (zf - up).abs()) \
+            / torch.clamp(znear2 * 0.3, min=1e-3)
+        grad = torch.maximum(grad, depth_prio * torch.clamp(gz, 0.0, 1.0))
+    if sel_decimate and C % 4 == 0 and W % 2 == 0 and H % 2 == 0:
+        # the top C/4 of the pooled priorities at stride 2, each 2x2 block
+        # expanded to its four pixels. XLA's "SAME" window at stride 2
+        # pads (k - 2) // 2 before and the rest after; the priorities are
+        # >= 0, so a pad of 0 is the reference's init value
+        k = 2 * grad_dilate + 1
+        lo = max(k - 2, 0) // 2
+        hi = max(k - 2, 0) - lo
+        priob = F.max_pool2d(F.pad(grad, (lo, hi, lo, hi))[None, None], k,
+                             stride=2)[0, 0]
+        wb = priob.shape[1]
+        selb = torch.argsort(-priob.reshape(-1), stable=True)[:C // 4]
+        by = torch.div(selb, wb, rounding_mode="floor")
+        bx = selb % wb
+        px = ((2 * by) * W + 2 * bx)[:, None] + torch.tensor(
+            [0, 1, W, W + 1], dtype=selb.dtype, device=dev)[None, :]
+        sel = torch.sort(px.reshape(-1)).values
+    else:
+        prio = _pool_max(grad, grad_dilate)
+        sel = torch.sort(torch.argsort(-prio.reshape(-1),
+                                       stable=True)[:C]).values
 
     # --- seeds: one leaf before the nearest first-contributing slab
     # boundary of the pixel's neighbourhood (z_first is +inf where no slab
@@ -180,56 +223,132 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
     min_step = 0.25 * leaf_cell
     spread = _spread3(depth, str(dev))
 
-    t = torch.where(miss, max_range, start)
-    rgb = torch.zeros((C, 3), dtype=torch.float32, device=dev)
-    w = torch.where(miss, 255.0, 0.0)
-    active = ~miss
-    for _ in range(band_iters):
-        pos = origin + dirs * t[:, None]
-        q = torch.clamp(torch.floor((pos - bbox0) / leaf_cell)
-                        .to(torch.int32), 0, n_leaf - 1)
+    def quantize(pos):
+        return torch.clamp(torch.floor((pos - bbox0) / leaf_cell)
+                           .to(torch.int32), 0, n_leaf - 1)
+
+    def leaf_index(q):
         c = spread[q.to(torch.int64)]
-        value = cache.values[leaf_off + (c[:, 0] | (c[:, 1] << 1)
-                                         | (c[:, 2] << 2))]
-        r, g, b, a = packing.unpack_rgba8(value)
+        return leaf_off + (c[..., 0] | (c[..., 1] << 1) | (c[..., 2] << 2))
+
+    def dist_at(q):
+        cq = q >> shift_l
+        return cache.dist[(cq[:, 2] << (2 * dist_level))
+                          | (cq[:, 1] << dist_level) | cq[:, 0]]
+
+    def exit_len(pos, corner, cell):
+        """Ray length from `pos` to the exit of the cell at `corner`."""
+        t_axis = torch.where(
+            moves,
+            torch.where(forward, corner + cell - pos, corner - pos)
+            * inv_dirs, torch.inf)
+        return torch.clamp(t_axis.amin(dim=-1), min=0.0)
+
+    def take(t, rgb, w, active, alpha, col, t_next):
+        """One sample of alpha and colour `col` into the live lanes, which
+        then move to t_next: the march's accumulation, its saturation at
+        w >= 127 and its 127/w rescale of a ray that leaves the range."""
+        rgb = torch.where(active[:, None],
+                          rgb + (alpha / 127.0)[:, None] * col, rgb)
+        w_new = w + torch.where(active, alpha, 0.0)
+        saturated = active & (w_new >= 127.0)
+        w = torch.where(saturated, 255.0, w_new)
+        t = torch.where(active, t_next, t)
+        oor = active & ~saturated & (t_next > limit)
+        scale = 127.0 / torch.clamp(w, min=1.0)
+        rgb = torch.where(oor[:, None], rgb * scale[:, None], rgb)
+        w = torch.where(oor, 255.0, w)
+        return t, rgb, w, active & ~saturated & ~oor
+
+    def trip(t, rgb, w, active):
+        """One sample a lane, then a step to the exit of its cell, plus
+        the guaranteed-empty skip when the cell is free."""
+        pos = origin + dirs * t[:, None]
+        q = quantize(pos)
+        r, g, b, a = packing.unpack_rgba8(cache.values[leaf_index(q)])
         if fused_dist:
             d = torch.where(a > packing.OCCUPIED_ALPHA, 0, r)
         else:
-            cq = q >> shift_l
-            d = cache.dist[(cq[:, 2] << (2 * dist_level))
-                           | (cq[:, 1] << dist_level) | cq[:, 0]]
+            d = dist_at(q)
         free = d > 0
         # free cells read alpha 0 either way: EMPTY_VALUE's byte is 127 and
         # a stamped free cell's is 0
         alpha = torch.where(free, 0.0,
                             torch.clamp(a - 127, min=0).to(torch.float32))
-        contrib = (alpha / 127.0)[:, None] * torch.stack(
-            [r, g, b], dim=-1).to(torch.float32)
-        rgb = torch.where(active[:, None], rgb + contrib, rgb)
-        w_new = w + torch.where(active, alpha, 0.0)
-        saturated = active & (w_new >= 127.0)
-        w = torch.where(saturated, 255.0, w_new)
-
-        # step to the exit of the current cell, plus the guaranteed-empty
-        # skip when it is free
         shift = (free.to(torch.int32) * shift_l)[:, None]
         cell = torch.where(free, cell_l, leaf_cell)[:, None]
-        corner = bbox0 + (q >> shift).to(torch.float32) * cell
-        t_axis = torch.where(
-            moves,
-            torch.where(forward, corner + cell - pos, corner - pos)
-            * inv_dirs, torch.inf)
-        t_exit = torch.clamp(t_axis.amin(dim=-1), min=0.0)
+        t_exit = exit_len(pos, bbox0 + (q >> shift).to(torch.float32) * cell,
+                          cell)
         skip = torch.where(free, (d - 1).to(torch.float32) * cell_l / linf,
                            0.0)
-        t = torch.where(active,
-                        t + torch.maximum(t_exit + skip + eps, min_step), t)
+        return take(t, rgb, w, active, alpha,
+                    torch.stack([r, g, b], dim=-1).to(torch.float32),
+                    t + torch.maximum(t_exit + skip + eps, min_step))
 
-        oor = active & ~saturated & (t > limit)
-        scale = 127.0 / torch.clamp(w, min=1.0)
-        rgb = torch.where(oor[:, None], rgb * scale[:, None], rgb)
-        w = torch.where(oor, 255.0, w)
-        active = active & ~saturated & ~oor
+    def crawl_trip(t, rgb, w, active):
+        """`crawl` leaf samples a lane in one gather of the values: the
+        sample positions are successive leaf-cell exits, pure ray
+        geometry; the last sample's t is the larger of the crawled extent
+        and the dist field's guaranteed-free advance (read from
+        `cache.dist` even with fused_dist). A free leaf cell reads alpha
+        0: an empty cell's byte is 127, a stamped one's 0."""
+        pos0 = origin + dirs * t[:, None]
+        q0 = quantize(pos0)
+        d = dist_at(q0)
+        exit_l = exit_len(
+            pos0, bbox0 + (q0 >> shift_l).to(torch.float32) * cell_l, cell_l)
+        skip = (d - 1).to(torch.float32) * cell_l / linf
+        t_skip = torch.where(
+            d > 0, t + torch.maximum(exit_l + skip + eps, min_step), 0.0)
+        tts, qs, tt = [], [], t
+        for _ in range(crawl):
+            ppos = origin + dirs * tt[:, None]
+            qq = quantize(ppos)
+            qs.append(qq)
+            tt = tt + torch.maximum(
+                exit_len(ppos, bbox0 + qq.to(torch.float32) * leaf_cell,
+                         leaf_cell) + eps, min_step)
+            tts.append(tt)
+        tts[-1] = torch.maximum(tts[-1], t_skip)
+        r, g, b, a = packing.unpack_rgba8(
+            cache.values[leaf_index(torch.stack(qs, dim=1))])
+        alpha_k = torch.clamp(a - 127, min=0).to(torch.float32)
+        rgb_k = torch.stack([r, g, b], dim=-1).to(torch.float32)
+        for i in range(crawl):
+            t, rgb, w, active = take(t, rgb, w, active, alpha_k[:, i],
+                                     rgb_k[:, i], tts[i])
+        return t, rgb, w, active
+
+    lanes = (torch.where(miss, max_range, start),
+             torch.zeros((C, 3), dtype=torch.float32, device=dev),
+             torch.where(miss, 255.0, 0.0), ~miss)
+    if C2 >= C or compact_after >= band_iters:
+        # the fixed-trip march, the production shape: band_iters trips
+        # with no exit test, so it reads nothing back to the host; only
+        # this shape takes `crawl` (band_iters then counts trips of up to
+        # `crawl` samples)
+        body = crawl_trip if crawl > 1 else trip
+        for _ in range(band_iters):
+            lanes = body(*lanes)
+        trips = band_iters
+    else:
+        # the reference's compacting march: single samples until no lane
+        # is live or band_iters trips, its live lanes sorted into C2 lanes
+        # after compact_after trips. The sort is left out: a lane that is
+        # not live is never written, so the march over all C lanes gives
+        # the compacted march's image bit for bit. The exit is tested
+        # every EXIT_CHECK_EVERY trips (one host read each); `trips`
+        # counts, on the device, the trips that had a live lane, the
+        # reference's count
+        needed = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(band_iters):
+            needed = needed + lanes[3].any().to(torch.int32)
+            lanes = trip(*lanes)
+            if (i + 1) % EXIT_CHECK_EVERY == 0 and i + 1 < band_iters \
+                    and not bool(lanes[3].any()):
+                break
+        trips = needed
+    _, rgb, w, active = lanes
 
     # --- merge. Finished rays are the exact march. Rays still active at
     # the trip cap (grazers that crawl leaf by leaf through occupied dist
@@ -246,5 +365,5 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
     out = out.reshape(H, W, 4)
     if debug_band:
         return out, dict(sel=sel, use_march=~capped | (w > 0.0),
-                         trips=band_iters, capped=capped, seed_t=start, w=w)
+                         trips=int(trips), capped=capped, seed_t=start, w=w)
     return out

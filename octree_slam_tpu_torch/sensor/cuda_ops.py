@@ -1,8 +1,10 @@
 """The sensor stencils as hand-written CUDA kernels, with their plain
 PyTorch versions (counterpart: octree_slam_tpu/sensor/pallas_ops.py).
 
-  bilateral          7x7 bilateral filter (bilateralKernel,
+  bilateral          bilateral filter (bilateralKernel,
                      image_kernels.cu:142-177) -> csrc kernel bilateral7x7
+                     for the 7x7 window, bilateral_window for any other
+                     (the reference's XLA path, image_ops.py:88-117)
   gated_pyramid      5x5 depth-gated mean at the kept (2y, 2x) pixels
                      (subsampleDepthKernel, image_kernels.cu:237-269),
                      one or two pyramid levels per launch
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 from octree_slam_tpu_torch import _build
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"bilateral7x7": 0, "gated_pyramid5x5": 0}
+LAUNCHES = {"bilateral7x7": 0, "bilateral_window": 0,
+            "gated_pyramid5x5": 0}
 # kernel name -> {batch size: launches} since the last reset_launches()
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 # pyramid levels one gated_pyramid5x5 launch makes
@@ -43,12 +46,15 @@ def reset_launches() -> None:
 
 
 def bilateral_plain(depth: torch.Tensor, sigma_spatial: float,
-                    sigma_depth: float) -> torch.Tensor:
-    """7x7 bilateral filter of integer depth [..., H, W] in plain PyTorch:
-    w = exp(-((dx^2+dy^2)*0.5/ss^2 + (c-nb)^2*0.5/sd^2)); taps outside the
-    image weigh 0 (zero depth inside the image is NOT masked); output
+                    sigma_depth: float, kernel_size: int = 7
+                    ) -> torch.Tensor:
+    """Bilateral filter of integer depth [..., H, W] over the window of
+    radius half = kernel_size // 2 (the reference's: an even size is the
+    next odd one) in plain PyTorch: w = exp(-((dx^2+dy^2)*0.5/ss^2 +
+    (c-nb)^2*0.5/sd^2)), taps in the order dy outer, dx inner; taps outside
+    the image weigh 0 (zero depth inside the image is NOT masked); output
     round_half_even(sum(w*nb) / sum(w)) in the input dtype."""
-    half = 3
+    half = kernel_size // 2
     h, w = depth.shape[-2:]
     sig_s = 0.5 / (sigma_spatial * sigma_spatial)
     sig_d = 0.5 / (sigma_depth * sigma_depth)
@@ -138,16 +144,30 @@ def _launch(kernel: str, x: torch.Tensor, *args) -> None:
 
 
 def bilateral(depth: torch.Tensor, sigma_spatial: float,
-              sigma_depth: float) -> torch.Tensor:
-    """7x7 bilateral filter of int32 depth [H, W] or [B, H, W]."""
+              sigma_depth: float, kernel_size: int = 7) -> torch.Tensor:
+    """Bilateral filter of int32 depth [H, W] or [B, H, W] over the window
+    of radius kernel_size // 2: bilateral7x7 for radius 3 (sizes 6 and 7),
+    bilateral_window for any other radius above 0. Radius 0 (sizes 0 and
+    1) is one tap of weight 1: the output is a copy of the depth."""
+    if kernel_size < 0:
+        raise ValueError(f"bilateral: kernel_size {kernel_size} < 0")
     if depth.device.type == "cpu":
-        return bilateral_plain(depth, sigma_spatial, sigma_depth)
-    x = _kernel_input(depth, "bilateral7x7")
+        return bilateral_plain(depth, sigma_spatial, sigma_depth, kernel_size)
+    half = kernel_size // 2
+    kernel = "bilateral7x7" if half == 3 else "bilateral_window"
+    x = _kernel_input(depth, kernel)
+    if half == 0:
+        return depth.clone()
     out = torch.empty_like(x)
     b, h, w = x.shape
-    _launch("bilateral7x7", x, x.data_ptr(), out.data_ptr(), b, h, w,
-            0.5 / (sigma_spatial * sigma_spatial),
-            0.5 / (sigma_depth * sigma_depth))
+    sig_s = 0.5 / (sigma_spatial * sigma_spatial)
+    sig_d = 0.5 / (sigma_depth * sigma_depth)
+    if half == 3:
+        _launch(kernel, x, x.data_ptr(), out.data_ptr(), b, h, w, sig_s,
+                sig_d)
+    else:
+        _launch(kernel, x, x.data_ptr(), out.data_ptr(), b, h, w, half,
+                sig_s, sig_d)
     return out if depth.ndim == 3 else out[0]
 
 

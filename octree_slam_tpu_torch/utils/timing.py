@@ -7,7 +7,7 @@ stream, the startTiming/stopTiming pattern of the reference
 (timing_utils.cu:11-32); `median_ms` times a callable over many launches,
 one event pair per call, so its reading includes the host's launch cost
 whenever the host enqueues more slowly than the device runs; `device_ms`
-reads the kernels' own durations from a torch.profiler trace. All need a
+times the calls replayed from a CUDA graph, without the host. All need a
 CUDA device: a measurement never falls back to the host clock.
 """
 
@@ -19,10 +19,6 @@ from collections import defaultdict
 from typing import Callable, Dict, List
 
 import torch
-
-# a torch.profiler trace now and then comes back with no device activity at
-# all, even after the traced kernels ran and were checked; retry that many
-_TRACE_ATTEMPTS = 3
 
 
 class EventTimer:
@@ -61,31 +57,25 @@ def median_ms(fn: Callable[[], object], runs: int = 50,
 
 def device_ms(fn: Callable[[], object], runs: int = 50,
               warmup: int = 3) -> float:
-    """Mean device milliseconds per call of `fn`: the summed durations of
-    every kernel, copy and fill it ran on the card, as torch.profiler
-    traces them, over `runs` calls after `warmup` untimed ones. Host launch
-    time and gaps between kernels are not in it. A trace with no device
-    activity is taken again, up to `_TRACE_ATTEMPTS` times in all, and
-    then this raises."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(_TRACE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        # a record_function range shows up on both sides; count only what
-        # ran on the device alone (kernels, copies, fills)
-        host_keys = {e.key for e in events if e.device_type !=
-                     torch.autograd.DeviceType.CUDA}
-        total_us = sum(e.self_device_time_total for e in events
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.key not in host_keys)
-        if total_us > 0:
-            return total_us / 1e3 / runs
-    raise RuntimeError(f"torch.profiler recorded no device time in "
-                       f"{_TRACE_ATTEMPTS} traces")
+    """Mean device milliseconds per call of `fn`: `runs` calls captured in
+    one CUDA graph (after `warmup` calls on a side stream) and replayed
+    between two CUDA events, so the host's launch cost falls out and the
+    device's work and the graph's short gaps between kernels remain. `fn`
+    must be capturable: no host reads, no synchronisation. (A
+    torch.profiler trace of the same calls now and then loses kernel
+    records, which under-counts a mean taken over `runs`.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    timer = EventTimer()
+    with timer.time("replay"):
+        graph.replay()
+    return timer.ms("replay")[0] / runs

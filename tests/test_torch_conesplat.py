@@ -238,14 +238,3 @@ def test_render_cone_splat_matches(scene):
         tl, torch.zeros(3), torch.tensor(HALF), to_t(pose), FX, FX,
         spec=cs.make_slab_spec(**SPEC_KW), depth=DEPTH)
     assert torch.equal(plain, tfb)
-
-
-@pytest.mark.parametrize("kw", [{"accumulate": True}, {"bilinear": True},
-                                {"blend": 0.25}])
-def test_unported_modes_raise(scene, kw):
-    _, tl, *_, pose = scene
-    with pytest.raises(NotImplementedError):
-        cs.render_cone_splat(tl, torch.zeros(3), torch.tensor(HALF),
-                             to_t(pose), FX, FX,
-                             spec=cs.make_slab_spec(**SPEC_KW), depth=DEPTH,
-                             **kw)

@@ -124,7 +124,8 @@ def test_batched_recovery_pyramid_on_card(device):
     cuda_ops.reset_launches()
     card = relocalize.pyramid_from_zbuffer(bufs, cfg)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES == {"bilateral7x7": 1, "gated_pyramid5x5": 1}
+    assert cuda_ops.LAUNCHES == {"bilateral7x7": 1, "bilateral_window": 0,
+                                 "gated_pyramid5x5": 1}
     assert cuda_ops.LAUNCH_BATCHES["bilateral7x7"] == {4: 1}
 
     depth = relocalize._depth_from_zbuffer(bufs, cfg)
@@ -159,7 +160,9 @@ def test_recovery_through_run_slam_on_card(device, capsys):
     assert g.relocalizations == c.relocalizations >= 1
     assert [e["frame"] for e in gev] == [e["frame"] for e in cev]
     assert not g.diverged
-    # one pyramid a frame and one batched pyramid an attempt
+    # one pyramid a frame and one batched pyramid an attempt, through the
+    # 7x7 bilateral
+    assert launches.pop("bilateral_window") == 0
     for name, n in launches.items():
         assert n == len(frames) + len(gev), (name, n)
     np.testing.assert_allclose(np.stack(g.poses), np.stack(c.poses),

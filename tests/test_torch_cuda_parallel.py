@@ -47,7 +47,8 @@ def test_slab_pyramid_launches_equal_whole_frame(device, n_px):
     whole, _ = sensor(f)
     launches = dict(cuda_ops.LAUNCHES)
     ref = tracking.build_pyramid(f.depth, f.color, cfg)
-    assert launches == {"bilateral7x7": n_px, "gated_pyramid5x5": n_px}
+    assert launches == {"bilateral7x7": n_px, "bilateral_window": 0,
+                        "gated_pyramid5x5": n_px}
     for lvl, (a, b) in enumerate(zip(whole, ref)):
         for name in a._fields:
             np.testing.assert_array_equal(getattr(a, name).cpu().numpy(),

@@ -208,15 +208,3 @@ def test_render_cone_hybrid_matches(scene):
     assert close_share(tfb, jfb) >= 0.99
     assert float((tfb[..., :3].sum(-1) > 0).float().mean()) > 0.3
     assert close_share(tfb, aux[0]) < 1.0          # not the slab image
-
-
-@pytest.mark.parametrize("kw", [{"sel_decimate": True}, {"crawl": 2},
-                                {"depth_prio": 0.5}, {"compact_after": 4}])
-def test_unported_band_knobs_raise(scene, kw):
-    _, tstate, aux = scene
-    with pytest.raises(NotImplementedError):
-        hybrid.band_march_merge(
-            to_t(aux[0]), to_t(aux[2]), tstate.accel, tstate.pool.center,
-            tstate.pool.half_size, tstate.pose, CFG.focal_x, CFG.focal_y,
-            spec=cs.make_slab_spec(**SPEC_KW), depth=CFG.max_depth,
-            dist_level=LVL, band_iters=12, **kw)

@@ -70,15 +70,11 @@ class TestBilateralPlain:
         cuda_ops.reset_launches()
         d = to_t(rand_depth(9, 11, seed=0))
         cuda_ops.bilateral(d, 4.5, 40.0)
+        cuda_ops.bilateral(d, 4.5, 40.0, kernel_size=5)
         cuda_ops.gated_subsample(d, 120.0)
         cuda_ops.gated_pyramid(d, 120.0, 2)
-        assert cuda_ops.LAUNCHES == {"bilateral7x7": 0,
+        assert cuda_ops.LAUNCHES == {"bilateral7x7": 0, "bilateral_window": 0,
                                      "gated_pyramid5x5": 0}
-
-    def test_only_7x7_is_ported(self):
-        with pytest.raises(NotImplementedError):
-            image_ops.bilateral_filter(to_t(rand_depth(9, 11, seed=0)),
-                                       kernel_size=5)
 
 
 class TestGatedSubsamplePlain:

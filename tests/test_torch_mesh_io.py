@@ -197,15 +197,6 @@ def test_obj_round_trip(tmp_path):
     np.testing.assert_allclose(back.vertices.numpy(), v, atol=1e-6)
     np.testing.assert_allclose(back.colors.numpy(), c, atol=1e-4)
     np.testing.assert_array_equal(back.faces.numpy(), f)
-    # with its texcoords, a textured mesh reads back with them
-    tuv = np.random.default_rng(6).uniform(0, 1, (nf, 3, 2)).astype(
-        np.float32)
-    obj.save_obj(str(tp), tm._replace(texcoords=torch.from_numpy(tuv)),
-                 with_texcoords=True)
-    back = obj.load_obj(str(tp), device=DEVICE)
-    _mesh_equal(back, jobj._load_obj_py(str(tp)))
-    np.testing.assert_allclose(back.texcoords.numpy(), tuv, atol=1e-6)
-    np.testing.assert_array_equal(back.faces.numpy(), f)
     # without normals and colours the writer emits plain 'v' and 'f'
     bare = tm._replace(normals=tm.normals[:0], colors=tm.colors[:0])
     jbare = jm._replace(normals=jm.normals[:0], colors=jm.colors[:0])

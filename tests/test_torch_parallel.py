@@ -6,7 +6,7 @@ state crossed by convert, and the sharded renders and the model z-buffer
 against the reference's on one carried map.
 
 Tolerances: bounds, pyramids (every level, n_px in 1, 2, 4, the halo
-clipped at the image's borders), pools, registries, unique counts, the
+clipped at the image's borders, bilateral windows of 1 to 11), pools, registries, unique counts, the
 packed z-buffer and the union leaf mirror are bit for bit, and so are the
 port's sharded slab words against its global scatter-min; icp_psum's
 (A, b) within 1e-5, relative and absolute, of the reference's (the slab
@@ -137,10 +137,10 @@ def test_slab_pyramid_equals_whole_frame(n_px):
 
 
 def test_pyramid_halo_is_derived_and_tight(monkeypatch):
-    """12 rows for three levels (9 needed, rounded up to a multiple of 4),
-    6 for two, 3 for one; one unit less breaks the equality at a slab
+    """12 rows for three levels (10 needed, rounded up to a multiple of
+    4), 6 for two, 4 for one; one unit less breaks the equality at a slab
     boundary."""
-    for depth, want in ((1, 3), (2, 6), (3, 12)):
+    for depth, want in ((1, 4), (2, 6), (3, 12)):
         assert distributed.pyramid_halo(
             dataclasses.replace(TCFG, pyramid_depth=depth)) == want
     cfg = dataclasses.replace(TCFG, pyramid_depth=3, pyramid_iters=(2, 2, 2))
@@ -151,6 +151,38 @@ def test_pyramid_halo_is_derived_and_tight(monkeypatch):
     whole, _ = distributed.row_sharded_sensor(cfg, mesh)(f)
     with pytest.raises(AssertionError):
         _assert_pyramids_equal(whole, ref, "8-row halo")
+
+
+def test_slab_pyramid_at_any_window():
+    """The halo follows the bilateral's window: at every window size and
+    at one and three levels, 4 row slabs of a noisy frame and of a ramp
+    give the whole frame's pyramid bit for bit, and one row less of halo
+    does not."""
+    mesh = distributed.make_mesh2(4, 1, devices=DEVICE)
+    f0 = _frames(TCFG, 1)[0]
+    for depth in (1, 3):
+        for size in (1, 5, 11):
+            cfg = dataclasses.replace(TCFG, pyramid_depth=depth,
+                                      pyramid_iters=(2,) * depth,
+                                      bilateral_kernel_size=size)
+            for f in (_noisy(f0, size), _ramp(f0)):
+                whole, _ = distributed.row_sharded_sensor(cfg, mesh)(f)
+                _assert_pyramids_equal(
+                    whole, tracking.build_pyramid(f.depth, f.color, cfg),
+                    f"depth {depth} size {size}")
+    assert distributed.pyramid_halo(dataclasses.replace(
+        TCFG, pyramid_depth=1, bilateral_kernel_size=11)) == 6
+    cfg = dataclasses.replace(TCFG, pyramid_depth=1, pyramid_iters=(2,),
+                              bilateral_kernel_size=11)
+    f = _noisy(f0, 11)
+    short = distributed.pyramid_halo(cfg) - 1
+    slabs = distributed.frame_sharding(mesh, cfg)
+    slab = slabs[0]._replace(padded=(0, slabs[0].rows[1] + short))
+    with pytest.raises(AssertionError):
+        np.testing.assert_array_equal(
+            distributed.slab_pyramid(f, cfg, slab)[0].normal.numpy(),
+            tracking.build_pyramid(f.depth, f.color, cfg)[0].normal[
+                :slab.rows[1]].numpy())
 
 
 def test_icp_psum_matches_reference():
@@ -284,6 +316,20 @@ def test_sharded_renders_match_reference(maps, render):
         # the packed words are equal (the model_zbuffer case); the
         # reference's compiled finish scales the colours in another order
         np.testing.assert_allclose(got, ref, atol=1e-7, rtol=0)
+
+
+def test_sharded_hybrid_ignores_sel_decimate(maps):
+    """The reference's render_sharded_hybrid does not pass
+    cone_band_sel_decimate on (parallel/distributed.py:684-692): the 2-D
+    hybrid with the knob on is the one with it off, bit for bit."""
+    _, tsmap, _, mesh = maps
+    pose = to_t(_look_at([0.2, 0.3, 2.2], [0.0, 0.0, 0.0]))
+    on, off = (distributed.render_sharded_hybrid(
+        tsmap, pose, CFG.focal_x, CFG.focal_y,
+        dataclasses.replace(TCFG, cone_band_sel_decimate=knob), mesh)
+        for knob in (True, False))
+    assert torch.equal(on, off)
+    assert float(off[..., :3].max()) > 0.1
 
 
 def test_sharded_insert_union_equals_one_pool():

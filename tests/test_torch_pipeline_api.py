@@ -1,4 +1,5 @@
-"""What the port's step refuses (check_supported), the synthetic sources
+"""What the port's step refuses (check_supported: only what the
+reference's step refuses), the synthetic sources
 against the JAX package's, and that the port's entry points default to the
 card (the step's parity is in tests/test_torch_pipeline.py).
 
@@ -41,16 +42,11 @@ def stream():
 @pytest.mark.parametrize("change,render,error", [
     ({}, "cone_trace", ValueError),
     ({"use_dense_mips": False}, "cone_hybrid", ValueError),
-    ({"cone_band_sel_decimate": True}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_crawl": 2}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_depth_prio": 0.5}, "cone_hybrid", NotImplementedError),
-    ({"cone_band_compact_after": 4}, "cone_hybrid", NotImplementedError),
 ])
 def test_check_supported_rejects(stream, change, render, error):
-    """What `step` still refuses: what the reference refuses (an unknown
-    render renders black there; the hybrid without the dense mirror) and
-    the four band knobs that are not ported. The same knobs pass for every
-    other render, which does not read them."""
+    """What `step` refuses is what the reference refuses: an unknown
+    render (it renders black there) and the hybrid without the dense
+    mirror. The slab cone, which reads no mirror, runs without it."""
     cfg = dataclasses.replace(TCFG, **change)
     with pytest.raises(error):
         pipeline.check_supported(cfg, render)
