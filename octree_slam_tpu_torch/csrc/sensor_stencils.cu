@@ -11,21 +11,23 @@
 //                        image_ops.subsample_depth (:129-133), for one or
 //                        two pyramid levels in one launch
 //
-// What bounds them on an H100. The bilateral does 49 exp-weighted taps per
-// pixel and moves 2.5 MB at 480x640: it is bound by instruction issue (about
-// 15 instructions a tap, one of them the MUFU exp2 inside expf) and by the
-// latency of each tap's dependent chain, not by memory. Its design cuts
-// everything around the taps and keeps many taps in flight: each thread
-// computes a run of 2 outputs along x and keeps the 10 neighbour values of
-// one window row in registers (five 8-byte shared loads per row and one
-// 16-byte load of the row's spatial weights, about 0.4 shared loads per
-// tap); it forms the 14 exp arguments of a row before any exp, so they
-// issue back to back; the spatial weights sit in registers, indexed by |dx|
-// at compile time; blocks whose window lies inside the image run a variant
+// What bounds them on an H100. The bilateral of radius r does (2r + 1)^2
+// exp-weighted taps per pixel (49 at the 7x7) and moves 2.5 MB at 480x640:
+// it is bound by instruction issue (about 15 instructions a tap, one of
+// them the MUFU exp2 inside expf) and by the latency of each tap's
+// dependent chain, not by memory. One engine, compiled for each radius
+// 1..6 (bilateral7x7 is its radius-3 instance), cuts everything around the
+// taps and keeps many taps in flight: each thread computes a run of
+// outputs along x and keeps the neighbour values of one window row in
+// registers (a few 8- or 16-byte shared loads per row and the row's
+// spatial weights as 16-byte loads: at the 7x7, about 0.4 shared loads per
+// tap); it forms all exp arguments of a row before any exp, so they issue
+// back to back; the spatial weights sit in registers, indexed by |dx| at
+// compile time; blocks whose window lies inside the image run a variant
 // with no bounds test; the tile is staged with 16-byte loads, every load of
-// a thread issued before the first store, and no per-element divide;
-// 32x16-output blocks make one wave at 480x640 (600 blocks of 256 threads,
-// all resident at once).
+// a thread issued before the first store, and no per-element divide.
+// Radii above 6 run a simple kernel with the radius known at run time: one
+// output a thread, every tap bounds-tested.
 //
 // The gated pyramid moves 1.6 MB for two levels and is bound by latency:
 // launch, the first load from device memory, one barrier. One launch makes
@@ -102,71 +104,119 @@ __device__ __forceinline__ void stage(float* __restrict__ tile,
   }
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
 // kN consecutive floats or ints as one vector load or store
 template <int kN> struct Vec;
 template <> struct Vec<2> { using F = float2; using I = int2; };
+template <> struct Vec<4> { using F = float4; using I = int4; };
 
 // ---------------------------------------------------------------- bilateral
 
-constexpr int kHalf = 3;                       // 7x7 window
-constexpr int kRun = 2;                        // outputs per thread along x
-                                               // (4 measured slower: fewer warps)
-constexpr int kTileW = 32;                     // output columns per block
-constexpr int kTileH = 16;                     // output rows per block
-constexpr int kBx = kTileW / kRun, kBy = kTileH;   // threads per block
-constexpr int kSpanH = kTileH + 2 * kHalf;     // 22 staged rows
-constexpr int kSpanW = kTileW + 8;             // 40 staged columns from x - 4
-constexpr int kSeg = kRun + 8;                 // row values a thread reads
+// (kRun, kTileH, kRowUnroll) of the instance of each radius 1..kMaxHalf,
+// tuned on an H100 at 480x640 (PERF.md; examples/
+// compare_stencil_kernels.py --shape): outputs a thread computes along x,
+// output rows a block computes, and the unroll of the loop over window
+// rows (2 * radius + 1 unrolls it fully). Runs of 4 and blocks of 8 or 32
+// rows were slower at every radius: 32x16-output blocks make one wave at
+// 480x640 (600 blocks of 256 threads, all resident at once). The unroll
+// that won differs by radius; radius 3 is bilateral7x7.
+struct WindowShape { int run, tile_h, row_unroll; };
+constexpr int kMaxHalf = 6;
+constexpr WindowShape kWindowShapes[kMaxHalf + 1] = {
+    {0, 0, 0}, {2, 16, 3}, {2, 16, 5}, {2, 16, 1}, {2, 16, 4}, {2, 16, 2},
+    {2, 16, 1}};
 
-// The 49 taps of one thread's run of kRun outputs. `row0` points at the
-// thread's first staged value (tile row of dy = -3, column of x0 - 4); the
-// neighbour of output j at dx sits at v[j + dx + 4]. kBorder tests each tap
-// against the image by coordinate: bit i of row_ok is window row i, bit k
-// of col_ok is column x0 - 4 + k.
-template <bool kBorder>
+// The register-tiled bilateral, compiled for one radius kHalf (window
+// kTaps x kTaps). A block of 16 x kTileH threads computes a kTileH x kTileW
+// output tile; each thread computes a run of kRun outputs along x.
+template <int kHalf>
+struct BilateralShape {
+  static constexpr int kRun = kWindowShapes[kHalf].run;
+  static constexpr int kTileH = kWindowShapes[kHalf].tile_h;
+  static constexpr int kRowUnroll = kWindowShapes[kHalf].row_unroll;
+  static constexpr int kTaps = 2 * kHalf + 1;
+  static constexpr int kBx = 16, kBy = kTileH;          // threads per block
+  static constexpr int kThreads = kBx * kBy;
+  static constexpr int kTileW = kBx * kRun;             // output columns
+  // staged columns left of the tile: the window's reach rounded up to 4,
+  // so the staged span starts on a 16-byte boundary of the image row
+  static constexpr int kPad = 4 * ((kHalf + 3) / 4);
+  static constexpr int kSpanH = kTileH + 2 * kHalf;     // staged rows
+  static constexpr int kSpanW = kTileW + 2 * kPad;      // staged columns
+  // a thread reads kSeg values of each window row from staged column
+  // kRun tx + kLo (column x0 - kPad + kLo of the image), kLo a multiple of
+  // kRun so that every read is one aligned vector load
+  static constexpr int kLo = (kPad - kHalf) / kRun * kRun;
+  static constexpr int kSeg =
+      (kPad + kHalf + kRun - kLo + kRun - 1) / kRun * kRun;
+  // the spatial weights of one window row, by |dx|, padded to float4s
+  static constexpr int kSpRow = 4 * ((kHalf + 4) / 4);
+  static_assert(kRun == 2 || kRun == 4, "kRun is a vector width");
+  static_assert(kTaps * kSpRow <= kThreads, "one thread a spatial weight");
+  static_assert(kSeg <= 32 && kTaps <= 32, "bit masks of 32 bits");
+};
+
+// The kTaps x kTaps taps of one thread's run of kRun outputs. `row0` points
+// at the thread's first staged value (tile row of dy = -kHalf, column
+// x0 - kPad + kLo); the neighbour of output j at dx sits at
+// v[j + dx + kPad - kLo]. kBorder tests each tap against the image by
+// coordinate: bit i of row_ok is window row i, bit k of col_ok is column
+// x0 - kPad + kLo + k.
+template <int kHalf, bool kBorder, int kRun = BilateralShape<kHalf>::kRun>
 __device__ __forceinline__ void bilateral_taps(
     const float* __restrict__ row0, const float* __restrict__ space,
     float sig_d, const float (&c)[kRun], unsigned row_ok, unsigned col_ok,
     float (&s1)[kRun], float (&s2)[kRun]) {
-  // a runtime loop over dy keeps the code small (kRun x 7 taps per trip);
-  // the spatial weights of the row come from one 16-byte shared load
-#pragma unroll 1
-  for (int i = 0; i < 2 * kHalf + 1; ++i) {
+  using S = BilateralShape<kHalf>;
+  constexpr int kOff = S::kPad - S::kLo;
+  // the loop over window rows, unrolled kRowUnroll times (kRun x kTaps
+  // taps a trip): a runtime loop keeps the code small
+#pragma unroll (S::kRowUnroll)
+  for (int i = 0; i < S::kTaps; ++i) {
     if (kBorder && !((row_ok >> i) & 1u)) continue;
-    const float* row = row0 + i * kSpanW;
-    float v[kSeg];
+    const float* row = row0 + i * S::kSpanW;
+    float v[S::kSeg];
 #pragma unroll
-    for (int q = 0; q < kSeg / kRun; ++q) {
+    for (int q = 0; q < S::kSeg / kRun; ++q) {
       const typename Vec<kRun>::F f =
           *reinterpret_cast<const typename Vec<kRun>::F*>(row + kRun * q);
 #pragma unroll
       for (int e = 0; e < kRun; ++e)
         v[kRun * q + e] = reinterpret_cast<const float*>(&f)[e];
     }
-    const float4 sp4 = *reinterpret_cast<const float4*>(space + 4 * i);
-    const float sp[kHalf + 1] = {sp4.x, sp4.y, sp4.z, sp4.w};   // by |dx|
+    float sp[S::kSpRow];                                   // by |dx|
+#pragma unroll
+    for (int q = 0; q < S::kSpRow / 4; ++q) {
+      const float4 f =
+          *reinterpret_cast<const float4*>(space + i * S::kSpRow + 4 * q);
+      sp[4 * q] = f.x;
+      sp[4 * q + 1] = f.y;
+      sp[4 * q + 2] = f.z;
+      sp[4 * q + 3] = f.w;
+    }
     // all exp arguments of the row, then all exps, then the sums in tap
-    // order: the kRun x 7 exps are independent and issue back to back (the
-    // sums alone are a serial chain). Out-of-image taps get a weight that
-    // is never added.
-    float wg[kRun][2 * kHalf + 1];
+    // order: the kRun x kTaps exps are independent and issue back to back
+    // (the sums alone are a serial chain). Out-of-image taps get a weight
+    // that is never added.
+    float wg[kRun][S::kTaps];
 #pragma unroll
     for (int j = 0; j < kRun; ++j) {
 #pragma unroll
       for (int dx = -kHalf; dx <= kHalf; ++dx) {
-        const float diff = c[j] - v[j + dx + kHalf + 1];
+        const float diff = c[j] - v[j + dx + kOff];
         wg[j][dx + kHalf] = -(sp[dx < 0 ? -dx : dx] + diff * diff * sig_d);
       }
     }
 #pragma unroll
     for (int j = 0; j < kRun; ++j)
 #pragma unroll
-      for (int dx = 0; dx < 2 * kHalf + 1; ++dx) wg[j][dx] = expf(wg[j][dx]);
+      for (int dx = 0; dx < S::kTaps; ++dx) wg[j][dx] = expf(wg[j][dx]);
 #pragma unroll
     for (int j = 0; j < kRun; ++j) {
 #pragma unroll
       for (int dx = -kHalf; dx <= kHalf; ++dx) {
-        const int k = j + dx + kHalf + 1;
+        const int k = j + dx + kOff;
         if (kBorder && !((col_ok >> k) & 1u)) continue;
         const float nb = v[k];
         const float wgt = wg[j][dx + kHalf];
@@ -177,59 +227,64 @@ __device__ __forceinline__ void bilateral_taps(
   }
 }
 
-// A block computes a kTileH x kTileW output tile; thread (tx, ty) computes
-// row ty, columns kRun tx .. kRun tx + kRun - 1. blockIdx.z is the batch
-// index.
-__global__ void __launch_bounds__(kBx * kBy)
-    bilateral7x7_kernel(const int32_t* __restrict__ in,
-                        int32_t* __restrict__ out, int H, int W,
-                        double sig_s, float sig_d, bool vec) {
-  __shared__ __align__(16) float tile[kSpanH * kSpanW];
-  __shared__ __align__(16) float space[(2 * kHalf + 1) * (kHalf + 1)];
+// Thread (tx, ty) computes row ty, columns kRun tx .. kRun tx + kRun - 1 of
+// the block's tile; blockIdx.z is the batch index.
+template <int kHalf>
+__global__ void __launch_bounds__(BilateralShape<kHalf>::kThreads)
+    bilateral_kernel(const int32_t* __restrict__ in,
+                     int32_t* __restrict__ out, int H, int W, double sig_s,
+                     float sig_d, bool vec) {
+  using S = BilateralShape<kHalf>;
+  constexpr int kRun = S::kRun, kTileH = S::kTileH;
+  __shared__ __align__(16) float tile[S::kSpanH * S::kSpanW];
+  __shared__ __align__(16) float space[S::kTaps * S::kSpRow];
   const size_t plane = (size_t)H * W;
   const int32_t* src = in + blockIdx.z * plane;
   int32_t* dst = out + blockIdx.z * plane;
-  const int bx0 = blockIdx.x * kTileW, by0 = blockIdx.y * kTileH;
+  const int bx0 = blockIdx.x * S::kTileW, by0 = blockIdx.y * kTileH;
 
-  // space[i][a] = (dx^2 + dy^2) * sig_s for |dx| = a, dy = i - 3: formed in
-  // double and rounded once to float, as the plain version's Python scalar
-  // is when it meets a float32 tensor
-  const int tid = threadIdx.y * kBx + threadIdx.x;
-  if (tid < (2 * kHalf + 1) * (kHalf + 1)) {
-    const int dy = (tid >> 2) - kHalf, a = tid & 3;
-    space[tid] = (float)((double)(a * a + dy * dy) * sig_s);
+  // space[i][a] = (dx^2 + dy^2) * sig_s for |dx| = a, dy = i - kHalf:
+  // formed in double and rounded once to float, as the plain version's
+  // Python scalar is when it meets a float32 tensor
+  const int tid = threadIdx.y * S::kBx + threadIdx.x;
+  if (tid < S::kTaps * S::kSpRow) {
+    const int dy = tid / S::kSpRow - kHalf, a = tid % S::kSpRow;
+    space[tid] = a <= kHalf ? (float)((double)(a * a + dy * dy) * sig_s)
+                            : 0.0f;
   }
-  stage<kSpanH, kSpanW / 4, kSpanW, kBx * kBy>(tile, src, H, W, by0 - kHalf,
-                                              bx0 - 4, kSpanH, vec);
+  stage<S::kSpanH, S::kSpanW / 4, S::kSpanW, S::kThreads>(
+      tile, src, H, W, by0 - kHalf, bx0 - S::kPad, S::kSpanH, vec);
   __syncthreads();
 
   const int y = by0 + threadIdx.y;
   const int x0 = bx0 + kRun * threadIdx.x;
-  const float* row0 = tile + threadIdx.y * kSpanW + kRun * threadIdx.x;
+  const float* row0 =
+      tile + threadIdx.y * S::kSpanW + kRun * threadIdx.x + S::kLo;
   float c[kRun], s1[kRun], s2[kRun];
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
-    c[j] = row0[kHalf * kSpanW + 4 + j];
+    c[j] = row0[kHalf * S::kSpanW + S::kPad - S::kLo + j];
     s1[j] = 0.0f;
     s2[j] = 0.0f;
   }
-  const bool interior = blockIdx.x > 0 && bx0 + kTileW + kHalf <= W &&
-                        blockIdx.y > 0 && by0 + kTileH + kHalf <= H;
+  const bool interior = bx0 >= kHalf && bx0 + S::kTileW + kHalf <= W &&
+                        by0 >= kHalf && by0 + kTileH + kHalf <= H;
   if (interior) {
-    bilateral_taps<false>(row0, space, sig_d, c, 0u, 0u, s1, s2);
+    bilateral_taps<kHalf, false>(row0, space, sig_d, c, 0u, 0u, s1, s2);
   } else {
     unsigned row_ok = 0u, col_ok = 0u;
 #pragma unroll
-    for (int i = 0; i < 2 * kHalf + 1; ++i) {
+    for (int i = 0; i < S::kTaps; ++i) {
       const int gy = y - kHalf + i;
       row_ok |= (unsigned)(gy >= 0 && gy < H) << i;
     }
 #pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
-      const int gx = x0 - 4 + k;
+    for (int k = 0; k < S::kSeg; ++k) {
+      const int gx = x0 - S::kPad + S::kLo + k;
       col_ok |= (unsigned)(gx >= 0 && gx < W) << k;
     }
-    bilateral_taps<true>(row0, space, sig_d, c, row_ok, col_ok, s1, s2);
+    bilateral_taps<kHalf, true>(row0, space, sig_d, c, row_ok, col_ok, s1,
+                                s2);
   }
   if (y >= H) return;
   // the centre tap has weight 1, so s2 >= 1 for every output in the image
@@ -247,15 +302,28 @@ __global__ void __launch_bounds__(kBx * kBy)
   }
 }
 
-// --------------------------------------------------------- bilateral window
+template <int kHalf>
+cudaError_t launch_bilateral(const void* in, void* out, int B, int H, int W,
+                             double sig_s, float sig_d, cudaStream_t stream) {
+  using S = BilateralShape<kHalf>;
+  const bool vec = W % 4 == 0 && aligned16(in) && aligned16(out);
+  const dim3 block(S::kBx, S::kBy);
+  const dim3 grid((W + S::kTileW - 1) / S::kTileW,
+                  (H + S::kTileH - 1) / S::kTileH, B);
+  bilateral_kernel<kHalf><<<grid, block, 0, stream>>>(
+      (const int32_t*)in, (int32_t*)out, H, W, sig_s, sig_d, vec);
+  return cudaGetLastError();
+}
 
-// The bilateral of any radius `half` (window 2 half + 1), for the window
-// sizes the 7x7 kernel above does not take. A simple kernel: each thread
-// computes one output with the taps in the plain version's order, from a
-// (kWinTileH + 2 half) x (kWinTileW + 2 half) tile staged in dynamic shared
-// memory, and every tap tests the image by coordinate. At a radius r it
-// does (2r + 1)^2 exp-weighted taps a pixel over the same 8 bytes a pixel
-// as the 7x7 kernel, so it is bound by instruction issue as that one is.
+// ------------------------------------------------- bilateral, radius > 6
+
+// The bilateral of a radius `half` above kMaxHalf, known at run time. A
+// simple kernel: each thread computes one output with the taps in the plain
+// version's order, from a (kWinTileH + 2 half) x (kWinTileW + 2 half) tile
+// staged in dynamic shared memory, and every tap tests the image by
+// coordinate. At a radius r it does (2r + 1)^2 exp-weighted taps a pixel
+// over the same 8 bytes a pixel as the kernels above, so it is bound by
+// instruction issue as they are.
 constexpr int kWinTileW = 32;              // output columns per block
 constexpr int kWinTileH = 16;              // output rows per block
 
@@ -414,8 +482,6 @@ __global__ void __launch_bounds__(kGx * kGy)
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 }  // namespace
 
 extern "C" {
@@ -424,22 +490,31 @@ extern "C" {
 int oslam_bilateral7x7(const void* in, void* out, int B, int H, int W,
                        double sig_s, float sig_d, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  const bool vec = W % 4 == 0 && aligned16(in) && aligned16(out);
-  const dim3 block(kBx, kBy);
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  bilateral7x7_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)in, (int32_t*)out, H, W, sig_s, sig_d, vec);
-  return (int)cudaGetLastError();
+  return (int)launch_bilateral<3>(in, out, B, H, W, sig_s, sig_d,
+                                  (cudaStream_t)stream);
 }
 
 // in, out: int32[B, H, W] contiguous on the current device; half >= 0 is
-// the window's radius. Radii whose tile passes 48 KB of shared memory opt
-// in to more; one past the block's limit is refused (cudaErrorInvalidValue).
+// the window's radius. Radii 1..kMaxHalf launch their compiled instance;
+// any other the run-time-radius kernel, whose tile opts in to more than
+// 48 KB of shared memory where it needs to; one past the block's limit is
+// refused (cudaErrorInvalidValue).
 int oslam_bilateral_window(const void* in, void* out, int B, int H, int W,
                            int half, double sig_s, float sig_d,
                            void* stream) {
   if (half < 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (half) {
+    case 1: return (int)launch_bilateral<1>(in, out, B, H, W, sig_s, sig_d, st);
+    case 2: return (int)launch_bilateral<2>(in, out, B, H, W, sig_s, sig_d, st);
+    case 3: return (int)launch_bilateral<3>(in, out, B, H, W, sig_s, sig_d, st);
+    case 4: return (int)launch_bilateral<4>(in, out, B, H, W, sig_s, sig_d, st);
+    case 5: return (int)launch_bilateral<5>(in, out, B, H, W, sig_s, sig_d, st);
+    case 6: return (int)launch_bilateral<6>(in, out, B, H, W, sig_s, sig_d, st);
+    default: break;
+  }
+  static_assert(kMaxHalf == 6, "one case a compiled radius");
   const size_t smem = sizeof(float) * (size_t)win_smem_floats(half);
   if (smem > 48 * 1024) {
     int dev = 0, most = 0;
@@ -455,7 +530,7 @@ int oslam_bilateral_window(const void* in, void* out, int B, int H, int W,
   const dim3 block(kWinTileW, kWinTileH);
   const dim3 grid((W + kWinTileW - 1) / kWinTileW,
                   (H + kWinTileH - 1) / kWinTileH, B);
-  bilateral_window_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  bilateral_window_kernel<<<grid, block, smem, st>>>(
       (const int32_t*)in, (int32_t*)out, H, W, half, sig_s, sig_d);
   return (int)cudaGetLastError();
 }

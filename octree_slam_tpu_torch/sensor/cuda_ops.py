@@ -4,7 +4,9 @@ PyTorch versions (counterpart: octree_slam_tpu/sensor/pallas_ops.py).
   bilateral          bilateral filter (bilateralKernel,
                      image_kernels.cu:142-177) -> csrc kernel bilateral7x7
                      for the 7x7 window, bilateral_window for any other
-                     (the reference's XLA path, image_ops.py:88-117)
+                     (the reference's XLA path, image_ops.py:88-117): an
+                     instance compiled for each radius up to
+                     MAX_COMPILED_HALF, a run-time-radius kernel above
   gated_pyramid      5x5 depth-gated mean at the kept (2y, 2x) pixels
                      (subsampleDepthKernel, image_kernels.cu:237-269),
                      one or two pyramid levels per launch
@@ -37,12 +39,28 @@ LAUNCHES = {"bilateral7x7": 0, "bilateral_window": 0,
 LAUNCH_BATCHES = {k: {} for k in LAUNCHES}
 # pyramid levels one gated_pyramid5x5 launch makes
 MAX_PYRAMID_LEVELS = 2
+# the largest radius csrc compiles an instance of the bilateral for
+# (kMaxHalf in sensor_stencils.cu); bilateral_window takes any larger one
+# with the radius known at run time
+MAX_COMPILED_HALF = 6
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_BATCHES[k].clear()
+
+
+def bilateral_instance(kernel_size: int) -> str:
+    """The kernel a CUDA bilateral of this window size runs: the compiled
+    instance of its radius, the run-time-radius kernel, or none (a
+    radius of 0 is a copy)."""
+    half = kernel_size // 2
+    if half == 0:
+        return "none: a copy"
+    if half <= MAX_COMPILED_HALF:
+        return f"radius {half}"
+    return "run-time radius"
 
 
 def bilateral_plain(depth: torch.Tensor, sigma_spatial: float,
@@ -147,8 +165,9 @@ def bilateral(depth: torch.Tensor, sigma_spatial: float,
               sigma_depth: float, kernel_size: int = 7) -> torch.Tensor:
     """Bilateral filter of int32 depth [H, W] or [B, H, W] over the window
     of radius kernel_size // 2: bilateral7x7 for radius 3 (sizes 6 and 7),
-    bilateral_window for any other radius above 0. Radius 0 (sizes 0 and
-    1) is one tap of weight 1: the output is a copy of the depth."""
+    bilateral_window for any other radius above 0 (`bilateral_instance`
+    names the kernel it runs). Radius 0 (sizes 0 and 1) is one tap of
+    weight 1: the output is a copy of the depth."""
     if kernel_size < 0:
         raise ValueError(f"bilateral: kernel_size {kernel_size} < 0")
     if depth.device.type == "cpu":

@@ -5,21 +5,31 @@ card's machine with
 
     python -m pytest tests/test_torch_cuda_bilateral.py --noconftest -q
 
+Every compiled instance (radii 1, 2, 4, 5, 6: sizes 2-5 and 8-13; radius 3
+is bilateral7x7) and the run-time-radius kernel (sizes 15 and 17) runs on
+shapes whose block edges fall on the image edge in each way: the frame, a
+ragged one (W % 4 != 0 sends the staging down its scalar path), a row slab
+of the 2 x 4 mesh, one smaller than the window, a single pixel and the
+recovery batch. The depth is a noisy surface (torch_parity.surface_depth),
+so every tap of the window carries weight.
+
 Tolerance: bit-exact against the plain version on the same device (the
 same tap order, expf, IEEE division, rintf and no FMA contraction)."""
 
 import pytest
 import torch
 
-from torch_parity import rand_depth
+from torch_parity import surface_depth
 
 from octree_slam_tpu_torch.sensor import cuda_ops, image_ops
 
 pytestmark = pytest.mark.cuda
 
-# the main path's frame and the recovery batch, a ragged edge, a frame
-# smaller than the window and a single pixel
-SHAPES = [(480, 640), (4, 480, 640), (479, 641), (9, 11), (1, 1)]
+# the main path's frame, a ragged edge, a row slab with its halo, a frame
+# smaller than the window, a single pixel and the recovery batch
+SHAPES = [(480, 640), (479, 641), (72, 640), (9, 11), (1, 1), (4, 480, 640)]
+# every compiled radius but 3 (sizes 2-5, 8-13), and the run-time kernel
+WINDOW_SIZES = [2, 3, 4, 5, 8, 9, 10, 11, 12, 13, 15, 17]
 
 
 @pytest.fixture
@@ -32,11 +42,11 @@ def device():
 def _depth(shape, seed, device):
     batch, (h, w) = (shape[0], shape[1:]) if len(shape) == 3 else (None,
                                                                      shape)
-    return torch.from_numpy(rand_depth(h, w, seed, batch).astype("int32")).to(
-        device)
+    return torch.from_numpy(
+        surface_depth(h, w, seed, batch).astype("int32")).to(device)
 
 
-@pytest.mark.parametrize("kernel_size", [3, 5, 9, 11])
+@pytest.mark.parametrize("kernel_size", WINDOW_SIZES)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_bilateral_window_matches_plain(device, shape, kernel_size):
     d = _depth(shape, kernel_size, device)
@@ -49,6 +59,15 @@ def test_bilateral_window_matches_plain(device, shape, kernel_size):
     torch.cuda.synchronize()
     assert out.shape == d.shape and out.dtype == torch.int32
     assert torch.equal(out, ref)
+
+
+def test_bilateral_window_filters(device):
+    """The surface makes the filter move most pixels: a kernel that kept
+    the centre would not pass for the plain version."""
+    d = _depth((480, 640), 0, device)
+    for k in (3, 13, 15):
+        moved = (cuda_ops.bilateral(d, 4.5, 40.0, k) != d).float().mean()
+        assert float(moved) > 0.5, (k, float(moved))
 
 
 def test_dispatch_by_radius(device):
@@ -69,3 +88,6 @@ def test_dispatch_by_radius(device):
     assert cuda_ops.LAUNCHES["bilateral_window"] == 1
     assert torch.equal(wide, cuda_ops.bilateral_plain(
         d[:64, :96].contiguous(), 4.5, 40.0, 81))
+    assert [cuda_ops.bilateral_instance(k) for k in (1, 5, 7, 13, 15)] == [
+        "none: a copy", "radius 2", "radius 3", "radius 6",
+        "run-time radius"]

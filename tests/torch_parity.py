@@ -107,6 +107,23 @@ def rand_depth(h, w, seed, batch=None):
     return d
 
 
+def surface_depth(h, w, seed, batch=None):
+    """u16 depth of a noisy surface: a slanted wave (about 1,000 to 4,100
+    mm at 640x480), a 300 mm step at mid-width, noise of 15 mm (within a
+    bilateral's sigma_depth of 40 mm, so every tap of the window carries
+    weight) and 5% zero holes. rand_depth's neighbours lie so far apart in
+    depth that a bilateral's output rests mostly on its centre tap."""
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if batch is None else (batch, h, w)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    base = (2000 + 500 * np.sin(x / 37 + 0.3 * y / 23) * np.cos(y / 29)
+            + 2 * x - y + 300 * (x >= w // 2))
+    d = base + rng.normal(0, 15, shape)
+    d = np.clip(np.rint(d), 400, 6000).astype(np.uint16)
+    d[rng.random(shape) < 0.05] = 0
+    return d
+
+
 def random_cloud(n, seed, lo=-0.9, hi=0.9):
     """Random points in [lo, hi)^3 with colours in [0, 1)."""
     rng = np.random.default_rng(seed)
