@@ -51,9 +51,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  11. app: the same orbit through app.run_slam, the loop a user runs, held
      to the pinned ATE, nodes and leaves, with its frame median beside the
      bare step loop's and its host reads a frame;
- 12. checkpoint: save_state -> load_state of that run's final state, every
-     field word for word, and one more frame from the loaded state and
-     from a copy of the original alike;
+ 12. checkpoint: save_state of that run's final state writes the JAX
+     package's file (n, the arrays a0 .. a{n-1}, the 15 stamps);
+     load_state brings back every field word for word, and one more frame
+     from the loaded state and from a copy of the original alike; the
+     reference's legacy files: without the prealloc stamp (accepted or
+     refused as the legacy schedule says), and, on the orbit with the
+     directory cache and the saturation gate, a file short of its last 6
+     arrays (the directory reset, the mask rebuilt from the registry);
  13. tiering at full size: the final state's leaves spilled to host RAM
      with the camera far away and restored with it back, the leaf words
      and every ancestor's refreshed word unchanged;
@@ -79,8 +84,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      pinned one, two launches of each kernel a frame, the renders against
      the single-device renderer on the same leaves (the splat's packed
      z-buffer and image, the cone's slab words bit for bit); a run that grows and
-     rebalances, equal to one pool fed its poses; the sharded tiering and
-     checkpoint round trips; a recovery with frame 8 blanked;
+     rebalances, equal to one pool fed its poses; the sharded tiering
+     round trip; the checkpoint round trip in the JAX package's file (its
+     13 stamps), every word, every shard on its device and the next
+     frame alike; a recovery with frame 8 blanked;
  18. offline, at the reference's full size: an in-code mesh of 100,000
      triangles with a 256x256 texture, written and read back through the
      port's OBJ and BMP code and Scene; the 256^3 voxel grid twice (equal
@@ -1089,26 +1096,85 @@ def phase_app(smi: str, cfg, frames, gts):
     return state, res.final_cfg, launches
 
 
-def phase_checkpoint(smi: str, state, cfg, frame):
-    """Phase 12: save_state -> load_state word for word, then one more
-    splat frame from the loaded state and from a copy of the original."""
+# the stamps of the reference package's checkpoint files beside `n` and the
+# arrays a0 .. a{n-1}: its app.save_state's 15 and run2d.save_sharded's 13
+REFERENCE_STAMPS = ("node_capacity", "leaf_capacity", "prealloc", "width",
+                    "height", "pyramid_depth", "track_finest_level",
+                    "fuse_level", "max_depth", "use_dense_mips",
+                    "track_keyframe", "insert_dircache", "saturation_gate",
+                    "insert_unique_cap", "voxel_resolution")
+REFERENCE_SHARDED_STAMPS = ("node_capacity", "leaf_capacity", "prealloc",
+                            "width", "height", "pyramid_depth",
+                            "track_finest_level", "fuse_level", "max_depth",
+                            "map_split_level", "insert_unique_cap",
+                            "voxel_resolution", "n_shards")
+# arrays cut off the tail of the legacy file (the most a reference file
+# with the directory cache may lack: dir_nodes .. stamps_stale)
+LEGACY_TAIL_CUT = 6
+
+
+def _key_set_off(path: str, n_arrays: int, stamps) -> list:
+    """The keys by which a checkpoint's key set differs from the reference
+    package's: `n`, a0 .. a{n_arrays - 1} and `stamps`."""
+    with np.load(path) as z:
+        keys = set(z.files)
+    want = {"n", *stamps, *(f"a{i}" for i in range(n_arrays))}
+    return sorted(keys ^ want)
+
+
+def _rewrite_file(src: str, dst: str, drop=(), cut: int = 0, **change):
+    """A copy of a checkpoint without the keys `drop` and its last `cut`
+    arrays, with `change` written over it: the reference package's legacy
+    files. Returns the copy's arrays."""
+    with np.load(src) as z:
+        data = {k: z[k] for k in z.files if k not in drop}
+    n = int(data["n"])
+    for i in range(n - cut, n):
+        del data[f"a{i}"]
+    data["n"] = np.asarray(n - cut)
+    data.update(change)
+    np.savez(dst, **data)
+    return data
+
+
+def phase_checkpoint(smi: str, state, cfg, frames, gts):
+    """Phase 12: save_state writes the reference package's file (its key
+    set: n, a0 .. a{n-1}, the 15 stamps), load_state brings back every
+    word on the card, and one more splat frame from the loaded state and
+    from a copy of the original alike. Then two of the reference's legacy
+    files, loaded on the card as its loader takes them: the file without
+    its prealloc stamp (laid out under the legacy schedule: accepted where
+    that equals this build's schedule, else refused), and a file of the
+    orbit with the directory cache and the saturation gate whose last
+    arrays are cut off (the directory reset, the mask rebuilt from the
+    registry)."""
     from octree_slam_tpu_torch import app, convert, pipeline
+    from octree_slam_tpu_torch.map import morton, svo
+    names = convert.slam_state_leaf_names(cfg)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "state.npz")
         t0 = time.perf_counter()
         app.save_state(path, state, cfg)
         t_save = time.perf_counter() - t0
         size = os.path.getsize(path)
+        keys_off = _key_set_off(path, len(names), REFERENCE_STAMPS)
         t0 = time.perf_counter()
         loaded, lcfg = app.load_state(path, cfg, device="cuda")
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
+        old = os.path.join(d, "prestamp.npz")
+        _rewrite_file(path, old, drop=("prealloc",))
+        try:
+            prestamp, _ = app.load_state(old, cfg, device="cuda")
+            refusal = None
+        except ValueError as e:
+            prestamp, refusal = None, str(e)
     a, b = _flat_fields(state), _flat_fields(loaded)
     off = {k: int(np.count_nonzero(a[k] != b[k])) for k in a
            if a[k].shape == b[k].shape}
     n_words = sum(v.size for v in a.values())
-    s1, o1 = pipeline.step(loaded, frame, lcfg)
-    s2, o2 = pipeline.step(convert.clone_state(state), frame, cfg)
+    s1, o1 = pipeline.step(loaded, frames[-1], lcfg)
+    s2, o2 = pipeline.step(convert.clone_state(state), frames[-1], cfg)
     same = {"pose": torch.equal(o1.pose, o2.pose),
             "pool.value": torch.equal(s1.pool.value, s2.pool.value),
             "pool.child": torch.equal(s1.pool.child, s2.pool.child),
@@ -1116,8 +1182,12 @@ def phase_checkpoint(smi: str, state, cfg, frame):
             "leaves.vals": torch.equal(s1.leaves.vals, s2.leaves.vals)}
     print(f"[checkpoint] {smi} | " + json.dumps({
         "save_s": t_save, "load_s": t_load, "file_bytes": size,
+        "arrays": len(names), "keys_off_reference": keys_off,
         "fields": len(a), "words": int(n_words),
         "differing_words": sum(off.values()), "next_frame_equal": same}))
+    check(not keys_off,
+          f"[checkpoint] the file's keys differ from the reference's: "
+          f"{keys_off}")
     check(a.keys() == b.keys() and len(off) == len(a),
           "[checkpoint] the loaded state has other fields or shapes")
     check(all(a[k].dtype == b[k].dtype for k in a),
@@ -1128,6 +1198,94 @@ def phase_checkpoint(smi: str, state, cfg, frame):
     check(lcfg == cfg, "[checkpoint] the loaded config differs")
     check(all(same.values()), f"[checkpoint] the next frame differs: {same}")
     del loaded, s1, s2
+
+    # the pre-stamp file: the legacy schedule decides
+    legacy = svo.prealloc_levels_legacy(cfg.node_capacity)
+    current = svo.prealloc_levels(cfg.node_capacity)
+    pre_off = None
+    if prestamp is not None:
+        c = _flat_fields(prestamp)
+        pre_off = sum(int(np.count_nonzero(a[k] != c[k])) for k in a)
+        del prestamp, c
+    print(f"[checkpoint] prestamp {smi} | " + json.dumps({
+        "node_capacity": cfg.node_capacity, "legacy_prealloc": legacy,
+        "prealloc": current, "accepted": refusal is None,
+        "differing_words": pre_off, "refusal": refusal}))
+    check((refusal is None) == (legacy == current),
+          f"[checkpoint] the pre-stamp file was "
+          f"{'accepted' if refusal is None else 'refused'} with the legacy "
+          f"schedule at {legacy} levels and this build's at {current}")
+    check(refusal is None and pre_off == 0 or refusal is not None
+          and "dense-preallocated" in refusal,
+          f"[checkpoint] the pre-stamp file: {refusal or pre_off}")
+
+    # the legacy tail, on the orbit with the directory cache and the gate
+    tcfg = dataclasses.replace(cfg, insert_dircache=True,
+                               saturation_gate=True)
+    tstate = pipeline.init_state(tcfg, initial_pose=gts[0], device="cuda")
+    for f in frames:
+        tstate, _ = pipeline.step(tstate, f, tcfg)
+    tnames = convert.slam_state_leaf_names(tcfg)
+    own = _flat_fields(tstate)
+    i_vals = tnames.index("leaves.vals")
+    # 14 frames saturate no leaf (the highest alpha stays near 155): half
+    # the live registry at alpha 255 gives the rebuilt mask bits to set
+    count = int(tstate.leaves.count)
+    vals = own["leaves.vals"].copy()
+    vals[:count // 2] |= np.uint32(0xFF000000)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        app.save_state(path, tstate, tcfg)
+        short = os.path.join(d, "tail.npz")
+        written = _rewrite_file(path, short, cut=LEGACY_TAIL_CUT,
+                                **{f"a{i_vals}": vals})
+        t0 = time.perf_counter()
+        tail, _ = app.load_state(short, tcfg, device="cuda")
+        torch.cuda.synchronize()
+        t_tail = time.perf_counter() - t0
+    got = _flat_fields(tail)
+    reset = ("dir_keys", "dir_nodes", "dir_vals", "dir_pos", "sat_mask")
+    kept = [k for k in tnames[:-LEGACY_TAIL_CUT] if k not in reset]
+    kept_off = sum(int(np.count_nonzero(got[k] != written[f"a{i}"]))
+                   for i, k in enumerate(tnames) if k in kept)
+    dir_reset = bool((got["dir_keys"] == morton.INVALID_KEY).all()
+                     and (got["dir_nodes"] == -1).all()
+                     and (got["dir_vals"] == 0).all()
+                     and (got["dir_pos"] == -1).all())
+    # the mask the registry implies: bit (key & 31) of word (key >> 5) of
+    # every live key at alpha 255
+    keys = own["leaves.keys"][:count]
+    sat = keys[(vals[:count] >> 24) == 255]
+    want_mask = np.zeros_like(own["sat_mask"])
+    np.bitwise_or.at(want_mask, sat >> 5,
+                     np.left_shift(np.uint32(1), (sat & 31).astype(np.uint32)))
+    flags_cold = not bool(got["mirror_stale"]) and not bool(
+        got["stamps_stale"])
+    rep = {"arrays": len(tnames), "cut": LEGACY_TAIL_CUT, "load_s": t_tail,
+           "kept_differing_words": kept_off,
+           "dir_live_rows_saved": int(np.count_nonzero(
+               own["dir_nodes"] >= 0)),
+           "dir_reset": dir_reset,
+           "own_sat_mask_nonzero_words": int(np.count_nonzero(
+               own["sat_mask"])),
+           "saturated_leaves": int(sat.size),
+           "sat_mask_nonzero_words": int(np.count_nonzero(got["sat_mask"])),
+           "sat_mask_equals_registry": bool(np.array_equal(got["sat_mask"],
+                                                           want_mask)),
+           "own_sat_mask_equals_rebuild": bool(np.array_equal(
+               _flat_fields(pipeline.rebuild_sat_mask(tstate, tcfg))
+               ["sat_mask"], own["sat_mask"])),
+           "flags_cold": flags_cold}
+    print(f"[checkpoint] legacy tail {smi} | " + json.dumps(rep))
+    check(kept_off == 0, f"[checkpoint] legacy tail: {kept_off} words of "
+          f"the kept arrays differ from the file's")
+    check(rep["dir_live_rows_saved"] > 0 and dir_reset,
+          f"[checkpoint] legacy tail: the directory was not reset: {rep}")
+    check(rep["saturated_leaves"] > 0 and rep["sat_mask_equals_registry"]
+          and rep["own_sat_mask_equals_rebuild"],
+          f"[checkpoint] legacy tail: the saturation mask: {rep}")
+    check(flags_cold, "[checkpoint] legacy tail: a staleness flag is set")
+    del tstate, tail
 
 
 def phase_tiering(smi: str, state, cfg):
@@ -2128,6 +2286,55 @@ def _render_checks(smap, pose, cfg, mesh, render, fb):
     return out
 
 
+def _multichip_checkpoint(smi: str, state, cfg, mesh, frame):
+    """The [multichip] checkpoint step: save_sharded writes the reference
+    package's file (n, a0 .. a{n-1}, its 13 stamps), load_sharded brings
+    back every word with every shard on its device, and one more frame
+    from the loaded state and from a copy of the original alike."""
+    from octree_slam_tpu_torch import convert
+    from octree_slam_tpu_torch.app import _flatten
+    from octree_slam_tpu_torch.parallel import distributed, run2d
+    names = convert.state2d_leaf_names(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "smap.npz")
+        t0 = time.perf_counter()
+        run2d.save_sharded(path, state, cfg)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        keys_off = _key_set_off(path, len(names), REFERENCE_SHARDED_STAMPS)
+        t0 = time.perf_counter()
+        loaded, lcfg = run2d.load_sharded(path, cfg, mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    a = _flatten(convert.state2d_to_numpy(state))
+    b = _flatten(convert.state2d_to_numpy(loaded))
+    on_device = all(p.child.device == lv.keys.device == dev
+                    for dev, p, lv in zip(mesh.axis_devices("map"),
+                                          loaded.smap.pools,
+                                          loaded.smap.leaves))
+    step = distributed.slam_step_2d(lcfg, mesh)
+    sa, _ = step(convert.clone_state(state), frame)
+    sb, _ = step(loaded, frame)
+    ka, va = run2d.union_leaves(sa.smap)
+    kb, vb = run2d.union_leaves(sb.smap)
+    ck = {"arrays": len(names), "keys_off_reference": keys_off,
+          "fields": len(a), "file_bytes": size, "save_s": t_save,
+          "load_s": t_load, "shards_on_their_devices": on_device,
+          "differing_words": sum(int(np.count_nonzero(a[k] != b[k]))
+                                 for k in a if k in b and
+                                 a[k].shape == b[k].shape),
+          "next_frame_equal": bool(torch.equal(sa.pose, sb.pose)
+                                   and np.array_equal(ka, kb)
+                                   and np.array_equal(va, vb))}
+    print(f"[multichip] checkpoint {smi} | " + json.dumps(ck))
+    check(not keys_off and lcfg == cfg and on_device,
+          f"[multichip] checkpoint: {ck}")
+    check(a.keys() == b.keys() and ck["differing_words"] == 0,
+          f"[multichip] checkpoint: {ck}")
+    check(ck["next_frame_equal"],
+          "[multichip] checkpoint: the next frame differs")
+
+
 def phase_multichip(smi: str, cfg, frames, gts, splat_registry):
     """Phase 17: run_slam_2d, the app loop on the 2-D ("px", "map") mesh,
     at full width on the card: the map axis alone against the splat orbit
@@ -2316,26 +2523,10 @@ def phase_multichip(smi: str, cfg, frames, gts, splat_registry):
     check(tier["differing_leaf_words"] == 0,
           f"[multichip] tiering: {tier['differing_leaf_words']} words differ")
 
-    # 5. the checkpoint round trip
-    state = splat_state._replace(smap=smap)
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "smap.npz")
-        t0 = time.perf_counter()
-        run2d.save_sharded(path, state, tcfg2)
-        t_save = time.perf_counter() - t0
-        size = os.path.getsize(path)
-        loaded, _ = run2d.load_sharded(path, tcfg2, mesh)
-    from octree_slam_tpu_torch.app import _flatten
-    a = _flatten(convert.state2d_to_numpy(state))
-    b = _flatten(convert.state2d_to_numpy(loaded))
-    ck = {"fields": len(a), "file_bytes": size, "save_s": t_save,
-          "differing_words": sum(int(np.count_nonzero(a[k] != b[k]))
-                                 for k in a if k in b and
-                                 a[k].shape == b[k].shape)}
-    print(f"[multichip] checkpoint {smi} | " + json.dumps(ck))
-    check(a.keys() == b.keys() and ck["differing_words"] == 0,
-          f"[multichip] checkpoint: {ck}")
-    del state, loaded, splat_state, smap
+    # 5. the checkpoint round trip, in the reference package's file
+    _multichip_checkpoint(smi, splat_state._replace(smap=smap), tcfg2, mesh,
+                          frames[-1])
+    del splat_state, smap
 
     # 6. recovery: frame RELOC_GARBAGE_FRAME blanked
     rcfg = dataclasses.replace(cfg, keypose_every=2,
@@ -2419,7 +2610,7 @@ def main(argv=None):
     launches.update(phase_features(smi, cfg, frames, gts, splat_registry))
     fidelity = phase_fidelity(smi, cfg, hybrid_cfg, frames, gts)
     state, app_cfg, launches["app"] = phase_app(smi, cfg, frames, gts)
-    phase_checkpoint(smi, state, app_cfg, frames[-1])
+    phase_checkpoint(smi, state, app_cfg, frames, gts)
     phase_tiering(smi, state, app_cfg)
     del state
     launches["grow"] = phase_grow(smi, cfg, frames, gts, splat_registry,

@@ -15,8 +15,8 @@ marched, `render/hybrid.py`) and "none", lazy and eager interiors, the
 keyframe anchor, the saturation gate, the photometric term, the insert's
 directory cache, the caller-driven pager (`pipeline.insert_remainder`) and
 `pipeline.heal_for_march`. Around the step it has the app loop
-(`app.run_slam` with growth, host tiering, relocalization and checkpoints,
-and the CLI, `python -m octree_slam_tpu_torch.app`), TUM replay
+(`app.run_slam` with growth, host tiering, relocalization and checkpoints
+in the JAX package's own file, and the CLI, `python -m octree_slam_tpu_torch.app`), TUM replay
 (`io/tum.py`: the repo's native libpng runtime through `io/native.py`
 where it builds, else its own PNG codec, `io/png.py`) and the `Octree`
 facade (`map/octree.py`). The multi-device path is the reference's

@@ -22,9 +22,13 @@ The reference package's compile-ahead of the grown step
 exist for its TPU and compile tunnel only; eager PyTorch compiles nothing,
 so cfg.precompile_ahead is accepted and ignored here.
 
-`save_state` / `load_state` checkpoint a state in the port's own format:
-an npz of every field by name (convert.state_to_numpy's names, packed
-words as uint32) plus the reference package's stamps.
+`save_state` / `load_state` checkpoint a state in the reference package's
+file, so that a map saved by either package resumes in the other: an npz
+of `n`, the state's leaves as arrays a0 .. a{n-1} in the reference's
+tree_flatten order (convert.slam_state_leaf_names, packed words as
+uint32) and its 15 stamps. The reader also takes the reference's legacy
+files (no prealloc stamp; a short tail) and the port's earlier
+`field:<name>` files.
 """
 
 from __future__ import annotations
@@ -376,8 +380,9 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
     return result
 
 
-# the stamps a checkpoint carries beside the fields: every shape- or
-# meaning-bearing knob, so that a reader rebuilds the exact layout
+# the stamps a checkpoint carries beside the arrays: every shape- or
+# meaning-bearing knob, so that a reader rebuilds the exact layout (with
+# node_capacity, leaf_capacity and prealloc, the reference's 15)
 _STAMPS = (("width", int), ("height", int), ("pyramid_depth", int),
            ("track_finest_level", int), ("fuse_level", int),
            ("max_depth", int), ("use_dense_mips", lambda v: bool(int(v))),
@@ -385,7 +390,7 @@ _STAMPS = (("width", int), ("height", int), ("pyramid_depth", int),
            ("insert_dircache", lambda v: bool(int(v))),
            ("saturation_gate", lambda v: bool(int(v))),
            ("insert_unique_cap", int), ("voxel_resolution", float))
-_FIELD = "field:"   # the prefix of a state field's name in the file
+_FIELD = "field:"   # a field's key in the port's earlier files
 
 
 def _flatten(tree, prefix=""):
@@ -416,32 +421,82 @@ def _unflatten(flat: dict, template):
     return build(template, "")
 
 
-def write_fields(path: str, tree, stamps: dict) -> None:
-    """A compressed npz of the stamps and of every array of `tree` (nested
-    dicts and lists of numpy arrays) by its dotted name."""
-    np.savez_compressed(path, **stamps, **{
-        _FIELD + k: v for k, v in _flatten(tree).items()})
+def _check_leaf(path: str, name: str, a: np.ndarray, want: np.ndarray,
+                where: str = "") -> None:
+    if a.dtype != want.dtype or a.shape != want.shape:
+        raise ValueError(
+            f"checkpoint {path!r} field {name}: stored "
+            f"{a.dtype}{list(a.shape)} vs expected "
+            f"{want.dtype}{list(want.shape)} for this config{where}")
+
+
+def is_reference_file(data) -> bool:
+    """Whether a checkpoint's keys are the reference package's layout
+    (`n` and the arrays a0 .. a{n-1}) rather than the port's earlier
+    `field:<name>` one."""
+    return "n" in data and "a0" in data
+
+
+def write_leaves(path: str, tree, names, stamps: dict) -> None:
+    """The reference package's checkpoint: a compressed npz of `n`, the
+    stamps, and the arrays of `tree` (nested dicts and lists of numpy
+    arrays) as a0 .. a{n-1} in the order of `names`, the reference's
+    tree_flatten order (convert.slam_state_leaf_names /
+    state2d_leaf_names)."""
+    flat = _flatten(tree)
+    if sorted(flat) != sorted(names):
+        raise ValueError(
+            f"the state's fields do not fit the config's layout: "
+            f"{sorted(set(flat) ^ set(names))}")
+    np.savez_compressed(path, n=len(names), **stamps,
+                        **{f"a{i}": flat[k] for i, k in enumerate(names)})
+
+
+def read_leaves(path: str, data: dict, tree, names, tails=()):
+    """The arrays of a write_leaves file (`data`, its arrays by key) in the
+    structure of `tree`, the numpy tree of a template state, as attribute
+    namespaces; `names` is the template's leaf order. A file short of its
+    last k arrays for k in `tails` (a legacy layout) gets zeros of the
+    template's dtype and shape in their place. Returns (tree, k). Any
+    other count, or a leaf of another dtype or shape than the template's,
+    raises and names it."""
+    expect = _flatten(tree)
+    n = int(data["n"])
+    missing = len(names) - n
+    if missing and missing not in tails:
+        raise ValueError(
+            f"checkpoint {path!r} has {n} arrays but the current config "
+            f"expects {len(names)}: it was written under a different "
+            f"SLAMConfig (capacities / pyramid_depth / use_dense_mips)")
+    flat = {}
+    for i, name in enumerate(names):
+        want = expect[name]
+        if i >= n:
+            flat[name] = np.zeros(want.shape, want.dtype)
+            continue
+        if f"a{i}" not in data:
+            raise ValueError(f"checkpoint {path!r} lacks array a{i} "
+                             f"(field {name})")
+        a = data[f"a{i}"]
+        _check_leaf(path, name, a, want, f" (array a{i})")
+        flat[name] = a
+    return _unflatten(flat, tree), missing
 
 
 def read_fields(path: str, data: dict, tree):
-    """The fields of a write_fields file (`data`, its arrays by name) in
-    the structure of `tree`, the numpy tree of a template state that the
-    file's stamps describe, as attribute namespaces. A field missing,
-    extra or of another dtype or shape than the template's raises and
-    names it."""
+    """The fields of one of the port's earlier `field:<name>` files
+    (`data`, its arrays by key) in the structure of `tree`, the numpy tree
+    of a template state that the file's stamps describe, as attribute
+    namespaces. A field missing, extra or of another dtype or shape than
+    the template's raises and names it."""
     expect = _flatten(tree)
     flat = {}
     for name, want in expect.items():
         key = _FIELD + name
         if key not in data:
             raise ValueError(f"checkpoint {path!r} lacks field {name}")
-        a = data[key]
-        if a.dtype != want.dtype or a.shape != want.shape:
-            raise ValueError(
-                f"checkpoint {path!r} field {name}: stored "
-                f"{a.dtype}{list(a.shape)} vs expected "
-                f"{want.dtype}{list(want.shape)} for this config")
-        flat[name] = a
+        _check_leaf(path, name, data[key], want)
+        flat[name] = data[key]
     extra = sorted(k[len(_FIELD):] for k in data
                    if k.startswith(_FIELD) and k[len(_FIELD):] not in expect)
     if extra:
@@ -452,27 +507,44 @@ def read_fields(path: str, data: dict, tree):
 
 def save_state(path: str, state: pipeline.SLAMState,
                cfg: SLAMConfig | None = None) -> None:
-    """Checkpoint the whole SLAM state (map, pose, pyramids, caches) to a
-    compressed npz: every field by name, packed words as uint32, and the
-    stamps. Pass the run's final cfg (RunResult.final_cfg): growth changes
-    capacities, and load_state rebuilds the layout from the stamps."""
+    """Checkpoint the whole SLAM state (map, pose, pyramids, caches) in the
+    reference package's file (its app.save_state): a compressed npz of `n`,
+    every leaf as a{i} in the reference's order (packed words as uint32)
+    and the 15 stamps, which its load_state reads unchanged. Pass the
+    run's final cfg (RunResult.final_cfg): growth changes capacities, and
+    load_state rebuilds the layout from the stamps. Without a cfg the file
+    holds `n` and the arrays alone, as the reference writes it."""
     from octree_slam_tpu_torch.map import svo
-    stamps = {"prealloc": svo.prealloc_levels(state.pool.capacity)}
+    from octree_slam_tpu_torch.map.mips import RenderCache
+    stamps = {}
     if cfg is not None:
-        stamps.update(node_capacity=cfg.node_capacity,
+        stamps = dict(node_capacity=cfg.node_capacity,
                       leaf_capacity=cfg.leaf_capacity,
+                      prealloc=svo.prealloc_levels(cfg.node_capacity),
                       **{k: (int(v) if isinstance(v, bool) else v)
                          for k, v in ((k, getattr(cfg, k))
                                       for k, _ in _STAMPS)})
-    write_fields(path, convert.state_to_numpy(state), stamps)
+    # the leaf order follows the state's own structure
+    layout = SimpleNamespace(
+        pyramid_depth=len(state.last_pyramid),
+        use_dense_mips=isinstance(state.accel, RenderCache),
+        track_keyframe=bool(state.key_pyramid))
+    write_leaves(path, convert.state_to_numpy(state),
+                 convert.slam_state_leaf_names(layout), stamps)
 
 
 def load_state(path: str, cfg: SLAMConfig, device="cuda"):
-    """Returns (state on `device`, cfg): the file's stamps override the
-    caller's cfg (a checkpoint written after growth has other capacities
-    than the command line). A file without the prealloc stamp, with
-    another prealloc schedule, or with a field missing or of another dtype
-    or shape than the stamped config makes raises, naming it."""
+    """Returns (state on `device`, cfg) of a checkpoint in the reference
+    package's file (its app.load_state) or in the port's earlier
+    `field:<name>` one. The file's stamps override the caller's cfg (a
+    checkpoint written after growth has other capacities than the command
+    line). A file without the prealloc stamp was laid out under the legacy
+    schedule (svo.prealloc_levels_legacy); another schedule than this
+    build's raises. A reference file short of its last 1 or 2 arrays (3 to
+    6 with the directory cache) is a legacy layout: the tail comes from
+    the template and the directory cache and the saturation mask are
+    rebuilt. Any other array count, or a field missing or of another dtype
+    or shape than the stamped config makes, raises and names it."""
     from octree_slam_tpu_torch.map import svo
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
@@ -489,21 +561,38 @@ def load_state(path: str, cfg: SLAMConfig, device="cuda"):
             cfg = dataclasses.replace(
                 cfg, pyramid_iters=cfg.pyramid_iters
                 + (4,) * (need - len(cfg.pyramid_iters)))
-    if "prealloc" not in data:
-        raise ValueError(f"checkpoint {path!r} has no prealloc stamp: its "
-                         f"pool layout cannot be checked, so it is refused")
     cur = svo.prealloc_levels(cfg.node_capacity)
-    stored = int(data["prealloc"])
+    # no stamp: written before the stamp, so under the legacy schedule
+    # (never "unchecked": those are the files a schedule change corrupts)
+    stored = (int(data["prealloc"]) if "prealloc" in data
+              else svo.prealloc_levels_legacy(cfg.node_capacity))
     if stored != cur:
         raise ValueError(
             f"checkpoint {path!r} was written with {stored} "
             f"dense-preallocated octree levels but this build uses {cur} "
             f"for capacity {cfg.node_capacity}: the pool layout is "
-            f"incompatible")
+            f"incompatible (re-map from the source data or use the "
+            f"writing build)")
     # the expected fields, from a template that allocates nothing
     tree = convert.state_to_numpy(pipeline.init_state(cfg, device="meta"))
-    state = convert.state_from_numpy(read_fields(path, data, tree), cfg,
-                                     device=device)
+    tail = 0
+    if is_reference_file(data):
+        # the reference's SLAMState appends fields last: a file of an
+        # older build lacks mirror_stale / stamps_stale (1, 2) and, with
+        # the directory cache, its dir_* arrays and sat_mask too (3-6)
+        tree, tail = read_leaves(
+            path, data, tree, convert.slam_state_leaf_names(cfg),
+            tails=(1, 2, 3, 4, 5, 6) if cfg.insert_dircache else (1, 2))
+    else:
+        tree = read_fields(path, data, tree)
+    state = convert.state_from_numpy(tree, cfg, device=device)
+    if tail:
+        # every tail field is a flag the template starts False or a cache
+        # that these rebuild (a partial directory must never be used; a
+        # cold saturation mask is right but slow, so it is warmed from the
+        # registry)
+        state = pipeline.rebuild_sat_mask(pipeline.reset_dircache(state),
+                                          cfg)
     return state, cfg
 
 

@@ -125,3 +125,5 @@ class SLAMConfig:
         """(height, width) of pyramid level `level` (0 = full res)."""
         return (self.height >> level, self.width >> level)
 
+
+DEFAULT_CONFIG = SLAMConfig()

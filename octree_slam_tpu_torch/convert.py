@@ -21,6 +21,12 @@ to the port's per-shard lists on a mesh's devices and back, and
 `state2d_from_numpy` / `state2d_to_numpy` the 2-D mesh's state tuple
 (parallel/distributed.State2D, the reference's tuple order).
 
+`slam_state_leaf_names` / `state2d_leaf_names` give the reference's
+pytree leaves in `jax.tree_util.tree_flatten` order, by the dotted names
+of the nested dicts above (`pool.child`, `last_pyramid.0.vertex`,
+`smap.bounds`): the reference package's checkpoints store leaf i as array
+`a{i}`, and app.py / parallel/run2d.py read and write that file.
+
 `clone_state` copies a port state (a SLAMState or a State2D):
 `pipeline.step` and the sharded step update the map in place, so a state
 that is to be stepped or rendered more than one way (a fidelity
@@ -231,6 +237,59 @@ def state2d_to_numpy(state) -> dict:
             "key_pyramid": _pyramid_np(state.key_pyramid),
             "key_pose": _np(state.key_pose),
             "key_T_cam": _np(state.key_T_cam)}
+
+
+# The reference's leaf order is its NamedTuples' field order (in the files
+# of octree_slam_tpu/ named below), spelled out: state_to_numpy's dict puts
+# key_pyramid beside last_pyramid, where the reference's SLAMState has it
+# after interior_stale.
+_POOL_FIELDS = ("child", "value", "n_nodes", "center", "half_size",
+                "overflowed")                    # map/svo.py:57-63
+_LEAF_FIELDS = ("keys", "nodes", "vals", "node2pos", "count",
+                "overflowed")                    # render/splat.py:44-58
+_LEVEL_FIELDS = ("vertex", "normal", "intensity")  # core/types.py:85-90
+
+
+def _pyramid_names(which: str, levels: int) -> tuple:
+    return tuple(f"{which}.{i}.{f}" for i in range(levels)
+                 for f in _LEVEL_FIELDS)
+
+
+def slam_state_leaf_names(cfg) -> tuple:
+    """The reference SLAMState's leaves (octree_slam_tpu/pipeline.py:50-114)
+    in tree_flatten order, as state_to_numpy's dotted names. Reads
+    cfg.pyramid_depth, cfg.use_dense_mips (a RenderCache's three arrays,
+    map/mips.py:63-68, or an AccelGrid's entry, render/raycast.py:50-53)
+    and cfg.track_keyframe (off, key_pyramid is an empty tuple: no
+    leaves)."""
+    accel = ("values", "occ", "dist") if cfg.use_dense_mips else ("entry",)
+    return (*(f"pool.{f}" for f in _POOL_FIELDS),
+            *(f"leaves.{f}" for f in _LEAF_FIELDS),
+            *(f"accel.{f}" for f in accel),
+            "pose",
+            *_pyramid_names("last_pyramid", cfg.pyramid_depth),
+            "initialized", "frame_idx", "diverged", "interior_stale",
+            *_pyramid_names("key_pyramid",
+                            cfg.pyramid_depth if cfg.track_keyframe else 0),
+            "key_pose", "key_T_cam",
+            "dir_keys", "dir_nodes", "dir_vals", "dir_pos",
+            "sat_mask", "mirror_stale", "stamps_stale")
+
+
+def state2d_leaf_names(cfg) -> tuple:
+    """The reference 2-D state's leaves in tree_flatten order, as
+    state2d_to_numpy's dotted names: the tuple (last_pyramid, pose,
+    initialized, ShardedMap(pool, leaves, bounds), diverged, key_pyramid,
+    key_pose, key_T_cam) of octree_slam_tpu/parallel/distributed.py:866-884
+    and :114-127, every map array stacked [M, ...]."""
+    return (*_pyramid_names("last_pyramid", cfg.pyramid_depth),
+            "pose", "initialized",
+            *(f"smap.pool.{f}" for f in _POOL_FIELDS),
+            *(f"smap.leaves.{f}" for f in _LEAF_FIELDS),
+            "smap.bounds", "diverged",
+            *_pyramid_names("key_pyramid",
+                            cfg.pyramid_depth if cfg.track_keyframe else 0),
+            "key_pose", "key_T_cam")
 
 
 def frame_from_numpy(depth: np.ndarray, color: np.ndarray, timestamp=0.0,

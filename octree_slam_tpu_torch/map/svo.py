@@ -71,6 +71,21 @@ def prealloc_levels(capacity: int) -> int:
     return 1
 
 
+def prealloc_levels_legacy(capacity: int) -> int:
+    """The schedule before level 6 was allowed at 1/3 headroom (levels 6
+    and 5 both at 1/8 of the pool). Checkpoints written without a
+    prealloc stamp were laid out under this rule: loaders compare it with
+    prealloc_levels to refuse a pool whose dense layout no longer matches
+    (a silent mismatch misindexes every shallow level)."""
+    for pre in (6, 5):
+        if 8 * _LEVEL_BASE[pre + 1] <= capacity:
+            return pre
+    for pre in (4, 3, 2, 1):
+        if 2 * _LEVEL_BASE[pre + 1] <= capacity:
+            return pre
+    return 1
+
+
 def create(capacity: int, center, half_size, device="cuda") -> SVONodePool:
     """Fresh pool with the shallow levels dense: the node of cell m at
     level l sits at (8^l - 8)/7 + m with child tile base(l+1) + 8m. Values

@@ -23,9 +23,11 @@ app.run_slam:
     pressure archives cold cells before growing, and archived cells come
     back as the camera nears them, off the camera position the signal
     vector carries;
-  * checkpoints (`save_sharded` / `load_sharded`) in the port's own format:
-    every field by name, packed words as uint32, and the reference's
-    stamps, as app.save_state writes them.
+  * checkpoints (`save_sharded` / `load_sharded`) in the reference
+    package's file (app.write_leaves: `n`, the leaves as a{i} in the
+    reference's order, its 13 stamps), so that a sharded map saved by
+    either package resumes in the other; the reader also takes the port's
+    earlier `field:<name>` files.
 """
 
 from __future__ import annotations
@@ -80,39 +82,45 @@ def relocalize_2d(state: State2D, cfg: SLAMConfig, mesh: Mesh, keyposes):
         "residual": best_res}
 
 
-# the stamps a checkpoint carries: every shape- or meaning-bearing knob
+# the stamps of the reference's save_sharded beside the capacities, the
+# prealloc schedule and the shard count (it stamps no track_keyframe: that
+# comes from the caller's cfg)
 _STAMPS = (("width", int), ("height", int), ("pyramid_depth", int),
            ("track_finest_level", int), ("fuse_level", int),
            ("max_depth", int), ("map_split_level", int),
-           ("insert_unique_cap", int), ("voxel_resolution", float),
-           ("track_keyframe", lambda v: bool(int(v))))
+           ("insert_unique_cap", int), ("voxel_resolution", float))
 
 
 def save_sharded(path: str, state: State2D, cfg: SLAMConfig) -> None:
-    """Checkpoint the 2-D mesh's state (sharded map, pose, pyramids) to a
-    compressed npz: every field by name (convert.state2d_to_numpy's,
-    packed words as uint32), the capacity and prealloc stamps, the shard
-    count and the layout stamps. Pass the run's final cfg: growth changes
-    capacities."""
-    from octree_slam_tpu_torch.app import write_fields
+    """Checkpoint the 2-D mesh's state (sharded map, pose, pyramids) in
+    the reference package's file (its run2d.save_sharded): a compressed
+    npz of `n`, the state's leaves as a{i} in the reference's order (the
+    map stacked [M, ...], packed words as uint32), the capacity and
+    prealloc stamps, the shard count and the layout stamps. Pass the
+    run's final cfg: growth changes capacities."""
+    from octree_slam_tpu_torch.app import write_leaves
     from octree_slam_tpu_torch.map import svo
-    write_fields(path, convert.state2d_to_numpy(state), dict(
-        node_capacity=cfg.node_capacity, leaf_capacity=cfg.leaf_capacity,
-        prealloc=svo.prealloc_levels(cfg.node_capacity),
-        n_shards=len(state.smap.pools),
-        **{k: (int(v) if isinstance(v, bool) else v)
-           for k, v in ((k, getattr(cfg, k)) for k, _ in _STAMPS)}))
+    write_leaves(path, convert.state2d_to_numpy(state),
+                 convert.state2d_leaf_names(cfg), dict(
+                     node_capacity=cfg.node_capacity,
+                     leaf_capacity=cfg.leaf_capacity,
+                     prealloc=svo.prealloc_levels(cfg.node_capacity),
+                     n_shards=len(state.smap.pools),
+                     **{k: getattr(cfg, k) for k, _ in _STAMPS}))
 
 
 def load_sharded(path: str, cfg: SLAMConfig, mesh: Mesh
                  ) -> Tuple[State2D, SLAMConfig]:
-    """Restore a save_sharded checkpoint onto `mesh`, every shard on its
-    device. The file's stamps override the caller's cfg; its shard count
+    """Restore a save_sharded checkpoint (the reference package's file, or
+    the port's earlier `field:<name>` one) onto `mesh`, every shard on its
+    device. The file's stamps override the caller's cfg, but for
+    track_keyframe, which the reference does not stamp; its shard count
     must be the mesh's "map" size (re-cut a map to another count with
     rebalance_sharded on a matching mesh first). Another prealloc
-    schedule, or a field missing, extra or of another dtype or shape than
-    the stamped config makes, raises and names it. Returns (state, cfg)."""
-    from octree_slam_tpu_torch.app import read_fields
+    schedule, another array count, or a field missing, extra or of
+    another dtype or shape than the stamped config makes, raises and names
+    it. Returns (state, cfg)."""
+    from octree_slam_tpu_torch import app
     from octree_slam_tpu_torch.map import svo
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
@@ -126,6 +134,9 @@ def load_sharded(path: str, cfg: SLAMConfig, mesh: Mesh
         cfg, node_capacity=int(data["node_capacity"]),
         leaf_capacity=int(data["leaf_capacity"]),
         **{k: cast(data[k]) for k, cast in _STAMPS})
+    if "track_keyframe" in data:   # the port's earlier files stamp it
+        cfg = dataclasses.replace(
+            cfg, track_keyframe=bool(int(data["track_keyframe"])))
     cur = svo.prealloc_levels(cfg.node_capacity)
     if int(data["prealloc"]) != cur:
         raise ValueError(
@@ -137,8 +148,12 @@ def load_sharded(path: str, cfg: SLAMConfig, mesh: Mesh
     meta = distributed.Mesh(np.full(mesh.devices.shape, torch.device("meta"),
                                     dtype=object), mesh.axis_names)
     tree = convert.state2d_to_numpy(distributed.slam_init_2d(cfg, meta))
-    return (convert.state2d_from_numpy(read_fields(path, data, tree), cfg,
-                                       mesh), cfg)
+    if app.is_reference_file(data):
+        tree, _ = app.read_leaves(path, data, tree,
+                                  convert.state2d_leaf_names(cfg))
+    else:
+        tree = app.read_fields(path, data, tree)
+    return convert.state2d_from_numpy(tree, cfg, mesh), cfg
 
 
 def run_slam_2d(frames: Iterable, cfg: SLAMConfig, mesh: Mesh,

@@ -19,7 +19,8 @@ import torch
 
 from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
 from torch_parity import (DEVICE, jax_frame, np_state,
-                          orbit_frames, orbit_port_frames, port_config)
+                          orbit_frames, orbit_port_frames, port_config,
+                          write_field_file)
 
 from octree_slam_tpu import app as japp
 from octree_slam_tpu import pipeline as jpipeline
@@ -148,14 +149,17 @@ def _stepped(cfg, n=2):
     return state, tcfg, frames
 
 
-def test_checkpoint_round_trip(tmp_path):
-    """Every field word for word; one more frame from the loaded state and
-    from a copy of the original gives the same pose, map and registry."""
+@pytest.mark.parametrize("fmt", ["reference", "field"])
+def test_checkpoint_round_trip(tmp_path, fmt):
+    """Every field word for word, from the file save_state writes and from
+    the port's earlier field:<name> file; one more frame from the loaded
+    state and from a copy of the original gives the same pose, map and
+    registry."""
     cfg = dataclasses.replace(SMALL, insert_dircache=True,
                               saturation_gate=True, track_keyframe=True)
     state, tcfg, frames = _stepped(cfg)
     path = str(tmp_path / "state.npz")
-    app.save_state(path, state, tcfg)
+    _save(path, state, tcfg, fmt)
     # the caller's cfg has other capacities: the stamps win
     other = dataclasses.replace(tcfg, node_capacity=1 << 16,
                                 leaf_capacity=1 << 10)
@@ -177,7 +181,9 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_checkpoint_matches_reference_stamps(tmp_path):
-    """The port writes the JAX package's stamps with the same values."""
+    """The port writes the JAX package's file: the same keys (`n`, a0 ..
+    a{n-1} and the 15 stamps) with the same stamp values, the map words as
+    the JAX package's u32 bits in its leaf order."""
     cfg = SMALL
     stream = orbit_frames(cfg, 1)
     jstate = jpipeline.init_state(cfg, initial_pose=jnp.asarray(stream[2][0]))
@@ -187,14 +193,16 @@ def test_checkpoint_matches_reference_stamps(tmp_path):
     japp.save_state(str(tmp_path / "j.npz"), jstate, cfg)
     app.save_state(str(tmp_path / "t.npz"), tstate, port_config(cfg))
     with np.load(tmp_path / "j.npz") as zj, np.load(tmp_path / "t.npz") as zt:
+        assert sorted(zt.files) == sorted(zj.files)
         stamps = [k for k in zj.files if not k.startswith("a")
                   and k != "n"]
         assert len(stamps) == 15
-        for k in stamps:
+        for k in stamps + ["n"]:
             assert zt[k] == zj[k], k
-        # the map words are the JAX package's u32 bits
-        assert zt["field:pool.value"].dtype == np.uint32
-        np.testing.assert_array_equal(zt["field:pool.value"],
+        i = convert.slam_state_leaf_names(port_config(cfg)).index(
+            "pool.value")
+        assert zt[f"a{i}"].dtype == np.uint32
+        np.testing.assert_array_equal(zt[f"a{i}"],
                                       np.asarray(jstate.pool.value))
 
 
@@ -207,31 +215,57 @@ def _rewrite(path, out, drop=(), change=None):
     return out
 
 
+def _save(path, state, cfg, fmt):
+    """`state` in the reference package's file (what save_state writes) or
+    in the port's earlier field:<name> one. Returns {field: its key}."""
+    if fmt == "reference":
+        app.save_state(path, state, cfg)
+        return {k: f"a{i}" for i, k in enumerate(
+            convert.slam_state_leaf_names(cfg))}
+    from octree_slam_tpu_torch.map import svo
+    write_field_file(path, convert.state_to_numpy(state), dict(
+        prealloc=svo.prealloc_levels(cfg.node_capacity),
+        node_capacity=cfg.node_capacity, leaf_capacity=cfg.leaf_capacity,
+        **{k: (int(v) if isinstance(v, bool) else v)
+           for k, v in ((k, getattr(cfg, k)) for k, _ in app._STAMPS)}))
+    return {k: "field:" + k for k in app._flatten(
+        convert.state_to_numpy(state))}
+
+
+@pytest.mark.parametrize("fmt", ["reference", "field"])
 @pytest.mark.parametrize("fault,match", [
-    ("no_prealloc", "no prealloc stamp"),
+    # no stamp means the legacy schedule: 5 dense levels at 2^20 nodes
+    ("no_prealloc", "written with 5 dense-preallocated"),
     ("wrong_prealloc", "dense-preallocated"),
-    ("missing_field", "lacks field leaves.vals"),
+    ("missing_field", r"lacks field leaves.vals|has 32 arrays but the current "
+                      r"config expects 35"),
     ("dtype", "field pool.value: stored int32"),
     ("shape", "field last_pyramid.0.vertex"),
 ])
-def test_checkpoint_refusals(tmp_path, fault, match):
-    state, tcfg, _ = _stepped(SMALL, n=1)
+def test_checkpoint_refusals(tmp_path, fault, match, fmt):
+    cfg = (dataclasses.replace(SMALL, node_capacity=1 << 20)
+           if fault == "no_prealloc" else SMALL)
+    state, tcfg, _ = _stepped(cfg, n=1)
     path = str(tmp_path / "s.npz")
-    app.save_state(path, state, tcfg)
+    key = _save(path, state, tcfg, fmt)
     out = str(tmp_path / "bad.npz")
     if fault == "no_prealloc":
         _rewrite(path, out, drop=("prealloc",))
     elif fault == "wrong_prealloc":
         _rewrite(path, out, change=lambda d: {"prealloc": np.int64(3)})
+    elif fault == "missing_field" and fmt == "field":
+        _rewrite(path, out, drop=(key["leaves.vals"],))
     elif fault == "missing_field":
-        _rewrite(path, out, drop=("field:leaves.vals",))
+        # three arrays short: no legacy tail without the directory cache
+        n = len(key)
+        _rewrite(path, out, drop=[f"a{i}" for i in range(n - 3, n)],
+                 change=lambda d: {"n": np.asarray(n - 3)})
     elif fault == "dtype":
-        _rewrite(path, out, change=lambda d: {
-            "field:pool.value": d["field:pool.value"].view(np.int32)})
+        k = key["pool.value"]
+        _rewrite(path, out, change=lambda d: {k: d[k].view(np.int32)})
     else:
-        _rewrite(path, out, change=lambda d: {
-            "field:last_pyramid.0.vertex":
-                d["field:last_pyramid.0.vertex"][:-1]})
+        k = key["last_pyramid.0.vertex"]
+        _rewrite(path, out, change=lambda d: {k: d[k][:-1]})
     with pytest.raises(ValueError, match=match):
         app.load_state(out, tcfg, device=DEVICE)
 

@@ -68,3 +68,32 @@ def test_ate_rmse_matches(align):
     assert isinstance(a, float)
     assert a == pytest.approx(b, rel=1e-12, abs=1e-12)
     assert (a < 0.05) == align
+
+
+def test_default_config_and_stage_stats():
+    """config.DEFAULT_CONFIG is SLAMConfig() in both packages; StageStats
+    keeps the reference's totals, counts and report, and waits for no
+    device when the tensors it blocks on lie on the CPU."""
+    import time
+
+    import torch
+
+    from octree_slam_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
+    from octree_slam_tpu.utils.timing import StageStats as JaxStageStats
+    from octree_slam_tpu_torch.config import DEFAULT_CONFIG
+    from octree_slam_tpu_torch.utils.timing import StageStats
+    assert DEFAULT_CONFIG == SLAMConfig() == port_config(JAX_DEFAULT)
+    stats, ref = StageStats(), JaxStageStats()
+    x = torch.zeros(3)
+    for s in (stats, ref):
+        for _ in range(2):
+            with s.time("fuse"):
+                time.sleep(0.002)
+        with s.time("track"):
+            pass
+    with stats.time("track", x, (x, {"y": [x]})):
+        pass
+    assert list(stats.report()) == list(ref.report()) == ["fuse", "track"]
+    assert stats.count == {"fuse": 2, "track": 2}
+    assert stats.mean_ms("fuse") >= 2.0 and ref.mean_ms("fuse") >= 2.0
+    assert stats.mean_ms("render") == 0.0 == ref.mean_ms("render")

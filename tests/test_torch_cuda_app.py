@@ -1,7 +1,8 @@
 """The app loop on the card against the port itself on the CPU: a small
 stream through run_slam that grows, spills and restores; the batched
 recovery pyramid of four candidates; a recovery through run_slam with its
-launch counts; a checkpoint written on the card and read on the CPU.
+launch counts; a checkpoint written on the card and read on the CPU;
+utils.timing.StageStats waiting for the card.
 Marked `cuda`: without a CUDA device every test skips. The repository's
 conftest imports jax, which the card's machine lacks, so run these there
 with
@@ -187,3 +188,19 @@ def test_checkpoint_from_card_loads_on_cpu(device, tmp_path):
     for k in a:
         assert a[k].dtype == b[k].dtype, k
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_stage_stats_waits_for_the_card(device):
+    """StageStats.time waits for the card that holds what it blocks on (a
+    dict the block fills): the stream is idle when the block's time is
+    taken, and the time covers the enqueued work."""
+    from octree_slam_tpu_torch.utils import timing
+    stats = timing.StageStats()
+    x = torch.randn(4096, 4096, device=device)
+    out = {}
+    with stats.time("matmul", out):
+        out["y"] = x
+        for _ in range(20):
+            out["y"] = out["y"] @ x / 64.0
+    assert torch.cuda.current_stream(device).query()
+    assert stats.count["matmul"] == 1 and stats.mean_ms("matmul") > 0.0

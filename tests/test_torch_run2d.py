@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
-from torch_parity import DEVICE, close_share, port_config, random_cloud, to_t
+from torch_parity import (DEVICE, close_share, port_config, random_cloud,
+                          to_t, write_field_file)
 
 from octree_slam_tpu.config import SLAMConfig
 from octree_slam_tpu.parallel import distributed as jdist
@@ -387,19 +388,30 @@ def test_relocalize_2d_recovers():
     assert err < 0.15, err
 
 
-def test_save_load_round_trip(tmp_path):
-    """save_sharded -> load_sharded word for word, the next frame equal
-    from both; a wrong shard count and a wrong capacity raise, naming
-    them."""
+@pytest.mark.parametrize("fmt", ["reference", "field"])
+def test_save_load_round_trip(tmp_path, fmt):
+    """save_sharded -> load_sharded word for word (the reference package's
+    file, which save_sharded writes, and the port's earlier field:<name>
+    file), the next frame equal from both; a wrong shard count and a wrong
+    capacity raise, naming them."""
     cfg = RECOVERY_CFG
     gt, frames = _orbit(cfg, 5, step=0.015)
     mesh = _mesh(2, 4)
     state, cfg2, _ = run2d.run_slam_2d(frames[:4], cfg, mesh,
                                        initial_pose=gt[0])
     p = str(tmp_path / "smap.npz")
-    run2d.save_sharded(p, state, cfg2)
+    if fmt == "reference":
+        run2d.save_sharded(p, state, cfg2)
+    else:
+        write_field_file(p, convert.state2d_to_numpy(state), dict(
+            node_capacity=cfg2.node_capacity,
+            leaf_capacity=cfg2.leaf_capacity,
+            prealloc=svo.prealloc_levels(cfg2.node_capacity),
+            n_shards=len(state.smap.pools),
+            track_keyframe=int(cfg2.track_keyframe),
+            **{k: getattr(cfg2, k) for k, _ in run2d._STAMPS}))
     state2, cfg3 = run2d.load_sharded(p, cfg, mesh)
-    assert cfg3.node_capacity == cfg2.node_capacity
+    assert cfg3 == cfg2
     a, b = convert.state2d_to_numpy(state), convert.state2d_to_numpy(state2)
     from octree_slam_tpu_torch.app import _flatten
     fa, fb = _flatten(a), _flatten(b)

@@ -309,3 +309,27 @@ def orbit_port_frames(stream, device=DEVICE):
     depth, color, _ = stream
     return [convert.frame_from_numpy(depth[i], color[i], device=device)
             for i in range(depth.shape[0])]
+
+
+def write_field_file(path, tree, stamps: dict) -> None:
+    """A checkpoint in the port's earlier layout (before it wrote the
+    reference package's file): the stamps and every array of `tree`
+    (convert.state_to_numpy / state2d_to_numpy) under `field:<dotted
+    name>`. The port's readers still take it."""
+    from octree_slam_tpu_torch.app import _flatten
+    np.savez_compressed(path, **stamps, **{
+        "field:" + k: v for k, v in _flatten(tree).items()})
+
+
+def reference_leaf_names(tree, top=None) -> list:
+    """The dotted names of a JAX pytree's leaves in tree_flatten order
+    (`pool.child`, `last_pyramid.0.vertex`, a tuple's items by index, or
+    for a tuple at the top by `top[index]`)."""
+    import jax
+    names = []
+    for kp, _ in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        parts = [str(getattr(k, "name", getattr(k, "idx", k))) for k in kp]
+        if top is not None:
+            parts[0] = top[kp[0].idx]
+        names.append(".".join(parts))
+    return names
