@@ -31,7 +31,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   6. the slab cone at full width: the same orbit through step("cone");
   7. the exact march at full width: the same orbit through
      step("cone_march"), every frame eager, with the march's trip counts
-     and the peak device memory;
+     and the peak device memory; then the last frame's march with its
+     live-ray compaction (76,800 of 307,200 lanes) against the all-lanes
+     march, in turns: equal word for word, with both CUDA-event times and
+     both calls' launches and device time;
   8. the hybrid at full width: the same orbit through step("cone_hybrid")
      with bench.py's band (57,600 lanes, 24 trips), every frame lazy; at
      most 3 host reads a frame; afterwards the mirror it kept must equal,
@@ -108,10 +111,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      nodes and leaves; the 2 x 4 mesh's row slabs at an 11x11 window,
      each slab's pyramid equal to the whole frame's; on
      phase 10's map the hybrid with each band knob (sel_decimate,
-     depth_prio 0.5, crawl 4 at 6 and at 24 trips, compact_after 8) and
+     depth_prio 0.5, crawl 4 at 6 and at 24 trips, compact_after 8, 96
+     trips fixed and compacting after 8) and
      the slab cone in each mode (accumulate, blend 0.25, bilinear), each
      with its PSNR against the exact march, render ms and device
-     operations; compact_after 8 gives the fixed-trip image bit for bit;
+     operations; compact_after 8 gives the fixed-trip image bit for bit,
+     and at 96 trips it packs its live lanes and still does;
      the crawl keeps the reference's contract (4 x 8 within 0.3 dB of
      1 x 32) on the reference's own 80x60 scene, and its gap at full
      width (4 x 6 against 1 x 24) is printed.
@@ -198,6 +203,8 @@ CONE_PSNR_FLOOR_DB = 25.0
 HYBRID_BAND = {"cone_band_cap": 57_600, "cone_band_iters": 24}
 # a feature orbit's own trajectory bound (the verify skill's good output)
 FEATURE_ATE_MAX_M = 0.01
+# rounds of the exact march's timing, compacted and all lanes in turns
+MARCH_COMPACTION_RUNS = 9
 # the recovery pyramid's batch: the config's reloc_candidates
 RELOC_CANDIDATES = 4
 # the relocalize phase's blanked frame, and its bound on the last frame's
@@ -552,7 +559,77 @@ def _march_trips(state, cfg):
             "fin_trip_median": float(fin.median()),
             "fin_trip_p99": float(fin.flatten().kthvalue(
                 int(0.99 * fin.numel())).values),
-            "rays_unfinished": int((dbg["fin"] >= cfg.max_march_iters).sum())}
+            "rays_unfinished": int((dbg["fin"] >= cfg.max_march_iters).sum()),
+            # rays still live after each exit test's trip
+            "live_after_trip": {t: int((dbg["fin"] > t).sum()) for t in range(
+                raycast.EXIT_CHECK_EVERY, cfg.max_march_iters,
+                raycast.EXIT_CHECK_EVERY)}}
+
+
+def _march_compaction(smi: str, state, cfg, trips):
+    """The exact march of the orbit's last frame with its live-ray
+    compaction (cone_trace_dense's defaults) and over all lanes
+    (compact_after = max_march_iters), in turns: the framebuffers word for
+    word, the CUDA-event ms of a call (median of MARCH_COMPACTION_RUNS
+    rounds), and the kernels and device time of one call under
+    torch.profiler. `trips` is _march_trips' of the same frame: where the
+    compaction happens and how many lanes were live there."""
+    import inspect
+    from torch.profiler import ProfilerActivity, profile
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.render import raycast
+    from octree_slam_tpu_torch.utils.timing import EventTimer
+    n = cfg.width * cfg.height
+    lanes = max(128, n // 4)
+    after = inspect.signature(
+        raycast.cone_trace_dense).parameters["compact_after"].default
+    live = trips["live_after_trip"]
+    packed_at = next((t for t in sorted(live) if t >= after
+                      and 0 < live[t] <= lanes), None)
+    runs = {"compacted": {}, "all_lanes": {
+        "compact_after": cfg.max_march_iters}}
+
+    def march(kw):
+        return raycast.cone_trace_dense(
+            state.accel, state.pool.center, state.pool.half_size, state.pose,
+            cfg.focal_x, cfg.focal_y, width=cfg.width, height=cfg.height,
+            max_depth=cfg.max_depth, dist_level=pipeline._accel_level(cfg),
+            max_iters=cfg.max_march_iters, max_range=cfg.max_range,
+            start_dist=cfg.start_dist, max_skip=cfg.dist_max_skip, **kw)
+
+    fbs, res = {}, {}
+    for name, kw in runs.items():
+        fbs[name] = march(kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            march(kw)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        res[name] = {
+            "launches": sum(e.count for e in kernels),
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3}
+    timer = EventTimer()
+    for _ in range(MARCH_COMPACTION_RUNS):
+        for name, kw in runs.items():
+            with timer.time(name):
+                march(kw)
+    for name in runs:
+        res[name]["ms_median"] = statistics.median(timer.ms(name))
+        res[name]["ms_all"] = timer.ms(name)
+    words = [fb.view(torch.int32) for fb in fbs.values()]
+    off = int((words[0] != words[1]).sum())
+    print(f"[cone_march] {smi} | live-ray compaction: {n} lanes, "
+          f"{lanes} after compaction; {live.get(after)} rays live after "
+          f"trip {after}; packs after trip {packed_at} "
+          f"({live.get(packed_at)} live); {off} of {words[0].numel()} "
+          f"framebuffer words differ from the all-lanes march; "
+          f"{MARCH_COMPACTION_RUNS} rounds in turns: " + json.dumps(res))
+    check(off == 0, f"[cone_march] the compacted march differs from the "
+          f"all-lanes march in {off} framebuffer words")
+    check(packed_at is not None,
+          "[cone_march] the live rays never fit the compacted lanes")
+    return res
 
 
 def _hybrid_mirror_check(smi: str, state, cfg, res):
@@ -641,6 +718,7 @@ def phase_orbit(smi: str, cfg, frames, gts, render: str, profile,
               f"trips a phase | peak device memory "
               f"{res['peak_mem_mb']:.1f} MiB")
         check(trips["p2_trips"] > 0, "[cone_march] the march sampled nothing")
+        res["compaction"] = _march_compaction(smi, state, cfg, trips)
     if profile == render and label == render:
         _profile_frame(smi, state, frames[-3:], cfg, res["frame_ms_median"],
                        render)
@@ -1915,6 +1993,10 @@ BAND_KNOBS = {
     "crawl=4 x 6": {"cone_band_crawl": 4, "cone_band_iters": 6},
     "crawl=4 x 24": {"cone_band_crawl": 4},
     "compact_after=8": {"cone_band_compact_after": 8},
+    # at 24 trips the live lanes never fit C/4; at 96 they do
+    "crawl=1 x 96": {"cone_band_iters": 96},
+    "compact_after=8 x 96": {"cone_band_compact_after": 8,
+                             "cone_band_iters": 96},
 }
 # the reference's contract for the crawl (tests/test_hybrid.py:155-195):
 # crawl 4 x 8 trips within CRAWL_DB_TOL of crawl 1 x 32 on its scene of six
@@ -2069,7 +2151,7 @@ def phase_knobs(smi: str, cfg, hybrid_cfg, frames, gts, fidelity):
         st, out = pipeline.step(convert.clone_state(state), frames[-1], kcfg,
                                 render="cone_hybrid")
 
-        def render(st=st, kcfg=kcfg, pose=out.pose):
+        def render(st=st, kcfg=kcfg, pose=out.pose, debug=False):
             return hybrid.render_cone_hybrid(
                 st.leaves, st.accel, st.pool.center, st.pool.half_size, pose,
                 kcfg.focal_x, kcfg.focal_y, spec=pipeline._slab_spec(kcfg),
@@ -2080,7 +2162,7 @@ def phase_knobs(smi: str, cfg, hybrid_cfg, frames, gts, fidelity):
                 fused_dist=kcfg.cone_band_fused_dist,
                 depth_prio=kcfg.cone_band_depth_prio,
                 compact_after=kcfg.cone_band_compact_after,
-                sel_decimate=kcfg.cone_band_sel_decimate)
+                sel_decimate=kcfg.cone_band_sel_decimate, debug_band=debug)
 
         check(torch.equal(render(), out.framebuffer),
               f"[knobs] {name}: the timed render is not the step's")
@@ -2089,9 +2171,19 @@ def phase_knobs(smi: str, cfg, hybrid_cfg, frames, gts, fidelity):
     for name, fb in images.items():
         band[name]["pixels_differing_from_base"] = int(
             (fb != images[BAND_BASE]).any(-1).sum())
+    packed_at = renders["compact_after=8 x 96"](debug=True)[1]["packed_at"]
+    long_off = int((images["compact_after=8 x 96"].view(torch.int32)
+                    != images["crawl=1 x 96"].view(torch.int32)).sum())
     del renders, images
     print(f"[knobs] {smi} | hybrid band knobs, {HYBRID_BAND} unless "
           f"named: " + json.dumps(band))
+    print(f"[knobs] compact_after=8 x 96 packs its live lanes into "
+          f"{max(128, HYBRID_BAND['cone_band_cap'] // 4)} after trip "
+          f"{packed_at}; {long_off} framebuffer words differ from the "
+          f"fixed-trip crawl=1 x 96")
+    check(packed_at > 0, "[knobs] the 96-trip band march never packed")
+    check(long_off == 0, "[knobs] the packed band march's image is not the "
+          "fixed-trip one")
     check(abs(band[BAND_BASE]["psnr_db"] - fidelity["cone_hybrid_psnr_db"])
           < 0.01, "[knobs] the base hybrid's PSNR moved from phase 10's")
     check(band["compact_after=8"]["pixels_differing_from_base"] == 0,

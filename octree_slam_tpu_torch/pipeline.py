@@ -48,8 +48,9 @@ pager is a Python loop that reads `unique_overflow` back once per page
 `lax.cond` heal is a read of the stale flags, once per eager frame under
 lazy_interior and once per lazy hybrid frame. A lazy hybrid frame's
 re-stamp trigger rides the pager's first read. The exact march reads its
-exit tests every raycast.EXIT_CHECK_EVERY trips; the hybrid's band march
-has a fixed trip count and reads nothing (but with
+exit tests every raycast.EXIT_CHECK_EVERY trips (from compact_after trips
+on, the live count, which also decides the compaction: no read more); the
+hybrid's band march has a fixed trip count and reads nothing (but with
 cfg.cone_band_compact_after < cfg.cone_band_iters, whose march tests its
 exit as the exact march does). So splat, slab-cone and "none" frames take
 one read, a lazy hybrid frame two.

@@ -51,15 +51,17 @@ as its SLAMConfig fields set them:
     and the image's sides are even; the full top-C otherwise);
   * `crawl = K > 1` takes K leaf samples a trip with one gather of the
     values; it applies to the fixed-trip march only;
-  * `compact_after < band_iters` (with C/4 >= 128 lanes below C) selects
-    the reference's compacting march: single samples until no lane is
-    live, its live lanes sorted into C/4 lanes after compact_after trips.
-    The sort is left out here: lanes that are not live are never written,
-    so marching all C lanes gives the compacted march's image bit for bit
-    (tests/test_torch_band_knobs.py holds the two equal). Its exit is
-    tested every raycast.EXIT_CHECK_EVERY trips, one host read each, and
-    debug_band's `trips` counts the trips that had a live lane, as the
-    reference's does.
+  * `compact_after < band_iters` (with C2 = max(128, C // 4) lanes
+    below C) selects the reference's compacting march: single samples
+    until no lane is live or band_iters trips, its live lanes packed into
+    C2 lanes (compaction.live_first) once at least compact_after trips are
+    done and the live count fits, and scattered back before the merge. A
+    lane's arithmetic does not depend on the lanes beside it, so the image
+    is the all-lanes march's bit for bit. The exit is tested every
+    raycast.EXIT_CHECK_EVERY trips, one host read each (the live count
+    from compact_after on), and debug_band's `trips` counts the trips that
+    had a live lane, as the reference's does (its `packed_at`: the trip
+    after which the lanes were packed, 0 if they were not).
 The reference's authors measured each of them on their TPU and kept them
 off; chip_smoke.py's `[knobs]` phase reads each one's PSNR and render time
 on the card.
@@ -78,6 +80,7 @@ from octree_slam_tpu_torch.render.raycast import (EXIT_CHECK_EVERY,
                                                   _ray_box, _spread3,
                                                   make_rays)
 from octree_slam_tpu_torch.render.splat import LeafList
+from octree_slam_tpu_torch.utils import compaction
 
 
 def render_cone_hybrid(leaves: LeafList, cache, center: torch.Tensor,
@@ -236,89 +239,100 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
         return cache.dist[(cq[:, 2] << (2 * dist_level))
                           | (cq[:, 1] << dist_level) | cq[:, 0]]
 
-    def exit_len(pos, corner, cell):
-        """Ray length from `pos` to the exit of the cell at `corner`."""
-        t_axis = torch.where(
-            moves,
-            torch.where(forward, corner + cell - pos, corner - pos)
-            * inv_dirs, torch.inf)
-        return torch.clamp(t_axis.amin(dim=-1), min=0.0)
+    def lane_march(dirs, inv_dirs, linf, limit, moves, forward):
+        """The single-sample and the crawl trip over a set of lanes (the
+        band, or its live lanes packed): the per-lane arithmetic is the
+        same either way."""
 
-    def take(t, rgb, w, active, alpha, col, t_next):
-        """One sample of alpha and colour `col` into the live lanes, which
-        then move to t_next: the march's accumulation, its saturation at
-        w >= 127 and its 127/w rescale of a ray that leaves the range."""
-        rgb = torch.where(active[:, None],
-                          rgb + (alpha / 127.0)[:, None] * col, rgb)
-        w_new = w + torch.where(active, alpha, 0.0)
-        saturated = active & (w_new >= 127.0)
-        w = torch.where(saturated, 255.0, w_new)
-        t = torch.where(active, t_next, t)
-        oor = active & ~saturated & (t_next > limit)
-        scale = 127.0 / torch.clamp(w, min=1.0)
-        rgb = torch.where(oor[:, None], rgb * scale[:, None], rgb)
-        w = torch.where(oor, 255.0, w)
-        return t, rgb, w, active & ~saturated & ~oor
+        def exit_len(pos, corner, cell):
+            """Ray length from `pos` to the exit of the cell at `corner`."""
+            t_axis = torch.where(
+                moves,
+                torch.where(forward, corner + cell - pos, corner - pos)
+                * inv_dirs, torch.inf)
+            return torch.clamp(t_axis.amin(dim=-1), min=0.0)
 
-    def trip(t, rgb, w, active):
-        """One sample a lane, then a step to the exit of its cell, plus
-        the guaranteed-empty skip when the cell is free."""
-        pos = origin + dirs * t[:, None]
-        q = quantize(pos)
-        r, g, b, a = packing.unpack_rgba8(cache.values[leaf_index(q)])
-        if fused_dist:
-            d = torch.where(a > packing.OCCUPIED_ALPHA, 0, r)
-        else:
-            d = dist_at(q)
-        free = d > 0
-        # free cells read alpha 0 either way: EMPTY_VALUE's byte is 127 and
-        # a stamped free cell's is 0
-        alpha = torch.where(free, 0.0,
-                            torch.clamp(a - 127, min=0).to(torch.float32))
-        shift = (free.to(torch.int32) * shift_l)[:, None]
-        cell = torch.where(free, cell_l, leaf_cell)[:, None]
-        t_exit = exit_len(pos, bbox0 + (q >> shift).to(torch.float32) * cell,
-                          cell)
-        skip = torch.where(free, (d - 1).to(torch.float32) * cell_l / linf,
-                           0.0)
-        return take(t, rgb, w, active, alpha,
-                    torch.stack([r, g, b], dim=-1).to(torch.float32),
-                    t + torch.maximum(t_exit + skip + eps, min_step))
+        def take(t, rgb, w, active, alpha, col, t_next):
+            """One sample of alpha and colour `col` into the live lanes,
+            which then move to t_next: the march's accumulation, its
+            saturation at w >= 127 and its 127/w rescale of a ray that
+            leaves the range."""
+            rgb = torch.where(active[:, None],
+                              rgb + (alpha / 127.0)[:, None] * col, rgb)
+            w_new = w + torch.where(active, alpha, 0.0)
+            saturated = active & (w_new >= 127.0)
+            w = torch.where(saturated, 255.0, w_new)
+            t = torch.where(active, t_next, t)
+            oor = active & ~saturated & (t_next > limit)
+            scale = 127.0 / torch.clamp(w, min=1.0)
+            rgb = torch.where(oor[:, None], rgb * scale[:, None], rgb)
+            w = torch.where(oor, 255.0, w)
+            return t, rgb, w, active & ~saturated & ~oor
 
-    def crawl_trip(t, rgb, w, active):
-        """`crawl` leaf samples a lane in one gather of the values: the
-        sample positions are successive leaf-cell exits, pure ray
-        geometry; the last sample's t is the larger of the crawled extent
-        and the dist field's guaranteed-free advance (read from
-        `cache.dist` even with fused_dist). A free leaf cell reads alpha
-        0: an empty cell's byte is 127, a stamped one's 0."""
-        pos0 = origin + dirs * t[:, None]
-        q0 = quantize(pos0)
-        d = dist_at(q0)
-        exit_l = exit_len(
-            pos0, bbox0 + (q0 >> shift_l).to(torch.float32) * cell_l, cell_l)
-        skip = (d - 1).to(torch.float32) * cell_l / linf
-        t_skip = torch.where(
-            d > 0, t + torch.maximum(exit_l + skip + eps, min_step), 0.0)
-        tts, qs, tt = [], [], t
-        for _ in range(crawl):
-            ppos = origin + dirs * tt[:, None]
-            qq = quantize(ppos)
-            qs.append(qq)
-            tt = tt + torch.maximum(
-                exit_len(ppos, bbox0 + qq.to(torch.float32) * leaf_cell,
-                         leaf_cell) + eps, min_step)
-            tts.append(tt)
-        tts[-1] = torch.maximum(tts[-1], t_skip)
-        r, g, b, a = packing.unpack_rgba8(
-            cache.values[leaf_index(torch.stack(qs, dim=1))])
-        alpha_k = torch.clamp(a - 127, min=0).to(torch.float32)
-        rgb_k = torch.stack([r, g, b], dim=-1).to(torch.float32)
-        for i in range(crawl):
-            t, rgb, w, active = take(t, rgb, w, active, alpha_k[:, i],
-                                     rgb_k[:, i], tts[i])
-        return t, rgb, w, active
+        def trip(t, rgb, w, active):
+            """One sample a lane, then a step to the exit of its cell,
+            plus the guaranteed-empty skip when the cell is free."""
+            pos = origin + dirs * t[:, None]
+            q = quantize(pos)
+            r, g, b, a = packing.unpack_rgba8(cache.values[leaf_index(q)])
+            if fused_dist:
+                d = torch.where(a > packing.OCCUPIED_ALPHA, 0, r)
+            else:
+                d = dist_at(q)
+            free = d > 0
+            # free cells read alpha 0 either way: EMPTY_VALUE's byte is 127
+            # and a stamped free cell's is 0
+            alpha = torch.where(
+                free, 0.0, torch.clamp(a - 127, min=0).to(torch.float32))
+            shift = (free.to(torch.int32) * shift_l)[:, None]
+            cell = torch.where(free, cell_l, leaf_cell)[:, None]
+            t_exit = exit_len(
+                pos, bbox0 + (q >> shift).to(torch.float32) * cell, cell)
+            skip = torch.where(
+                free, (d - 1).to(torch.float32) * cell_l / linf, 0.0)
+            return take(t, rgb, w, active, alpha,
+                        torch.stack([r, g, b], dim=-1).to(torch.float32),
+                        t + torch.maximum(t_exit + skip + eps, min_step))
 
+        def crawl_trip(t, rgb, w, active):
+            """`crawl` leaf samples a lane in one gather of the values:
+            the sample positions are successive leaf-cell exits, pure ray
+            geometry; the last sample's t is the larger of the crawled
+            extent and the dist field's guaranteed-free advance (read from
+            `cache.dist` even with fused_dist). A free leaf cell reads
+            alpha 0: an empty cell's byte is 127, a stamped one's 0."""
+            pos0 = origin + dirs * t[:, None]
+            q0 = quantize(pos0)
+            d = dist_at(q0)
+            exit_l = exit_len(
+                pos0, bbox0 + (q0 >> shift_l).to(torch.float32) * cell_l,
+                cell_l)
+            skip = (d - 1).to(torch.float32) * cell_l / linf
+            t_skip = torch.where(
+                d > 0, t + torch.maximum(exit_l + skip + eps, min_step), 0.0)
+            tts, qs, tt = [], [], t
+            for _ in range(crawl):
+                ppos = origin + dirs * tt[:, None]
+                qq = quantize(ppos)
+                qs.append(qq)
+                tt = tt + torch.maximum(
+                    exit_len(ppos, bbox0 + qq.to(torch.float32) * leaf_cell,
+                             leaf_cell) + eps, min_step)
+                tts.append(tt)
+            tts[-1] = torch.maximum(tts[-1], t_skip)
+            r, g, b, a = packing.unpack_rgba8(
+                cache.values[leaf_index(torch.stack(qs, dim=1))])
+            alpha_k = torch.clamp(a - 127, min=0).to(torch.float32)
+            rgb_k = torch.stack([r, g, b], dim=-1).to(torch.float32)
+            for i in range(crawl):
+                t, rgb, w, active = take(t, rgb, w, active, alpha_k[:, i],
+                                         rgb_k[:, i], tts[i])
+            return t, rgb, w, active
+
+        return trip, crawl_trip
+
+    geometry = (dirs, inv_dirs, linf, limit, moves, forward)
+    trip, crawl_trip = lane_march(*geometry)
     lanes = (torch.where(miss, max_range, start),
              torch.zeros((C, 3), dtype=torch.float32, device=dev),
              torch.where(miss, 255.0, 0.0), ~miss)
@@ -330,23 +344,37 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
         body = crawl_trip if crawl > 1 else trip
         for _ in range(band_iters):
             lanes = body(*lanes)
-        trips = band_iters
+        trips, packed_at = band_iters, 0
     else:
         # the reference's compacting march: single samples until no lane
-        # is live or band_iters trips, its live lanes sorted into C2 lanes
-        # after compact_after trips. The sort is left out: a lane that is
-        # not live is never written, so the march over all C lanes gives
-        # the compacted march's image bit for bit. The exit is tested
-        # every EXIT_CHECK_EVERY trips (one host read each); `trips`
-        # counts, on the device, the trips that had a live lane, the
-        # reference's count
+        # is live or band_iters trips, the live lanes packed into C2 lanes
+        # at the first exit test at or after compact_after trips where
+        # they fit. `trips` counts, on the device, the trips that had a
+        # live lane, the reference's count
         needed = torch.zeros((), dtype=torch.int32, device=dev)
-        for i in range(band_iters):
+        full = sub = None
+        packed_at = 0
+        for i in range(1, band_iters + 1):
             needed = needed + lanes[3].any().to(torch.int32)
             lanes = trip(*lanes)
-            if (i + 1) % EXIT_CHECK_EVERY == 0 and i + 1 < band_iters \
-                    and not bool(lanes[3].any()):
+            if i % EXIT_CHECK_EVERY or i == band_iters:
+                continue
+            if sub is None and i >= compact_after:
+                n_act = int(lanes[3].sum())
+                if n_act == 0:
+                    break
+                if n_act <= C2:
+                    # lanes outside `sub` finished already and keep their
+                    # values in `full`
+                    full, sub = lanes, compaction.live_first(lanes[3], C2)
+                    packed_at = i
+                    lanes = tuple(x[sub] for x in full)
+                    trip, _ = lane_march(*(g[sub] for g in geometry))
+            elif not bool(lanes[3].any()):
                 break
+        if sub is not None:
+            lanes = tuple(x.index_copy_(0, sub, y)
+                          for x, y in zip(full, lanes))
         trips = needed
     _, rgb, w, active = lanes
 
@@ -365,5 +393,6 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
     out = out.reshape(H, W, 4)
     if debug_band:
         return out, dict(sel=sel, use_march=~capped | (w > 0.0),
-                         trips=int(trips), capped=capped, seed_t=start, w=w)
+                         trips=int(trips), capped=capped, seed_t=start, w=w,
+                         packed_at=packed_at)
     return out

@@ -25,11 +25,16 @@ test is a host read, so the loops read it only every `EXIT_CHECK_EVERY`
 trips. A trip on which no lane is live writes nothing (every write is
 masked by the lane's liveness), so the image is bit-identical to testing
 every trip; only the count of trips run differs, and `debug_iters` reports
-the count of trips that were needed, kept on the device. The reference's
-sort compaction of the live rays, a static-shape device of its own, is not
-ported: `compact_after` and `compact_cap` are accepted and ignored, and the
-result is the uncompacted march's, to which the reference holds its
-compacted one bit for bit.
+the count of trips that were needed, kept on the device.
+
+`cone_trace_dense` compacts its live rays as the reference does, and as
+the original program relaunches coneTrace over the rays that
+thrust::remove_if left live (cone_tracing_kernels.cu:157-198): once the
+live count, read at an exit test at or after `compact_after` trips, fits
+`compact_cap` lanes, the live lanes are packed into that many lanes, the
+tail marches there and its results scatter back. A lane's arithmetic does
+not depend on the lanes beside it, so the image is the all-lanes march's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -42,9 +47,12 @@ import torch
 from octree_slam_tpu_torch.core import packing
 from octree_slam_tpu_torch.map import mips
 from octree_slam_tpu_torch.map.svo import SVONodePool
+from octree_slam_tpu_torch.utils import compaction
 
 # trips between two host reads of a march loop's exit test
 EXIT_CHECK_EVERY = 4
+# the per-lane state of a march, which compaction gathers and scatters back
+LANES = ("ray_len", "rgb", "w", "active")
 
 
 class AccelGrid(NamedTuple):
@@ -298,16 +306,26 @@ def cone_trace_dense(cache, center: torch.Tensor, half_size, world_T_cam,
     an occupied dist cell or has left the range. Phase 2 samples and steps
     until no ray is live. Each phase runs at most `max_iters` trips.
 
-    `max_skip`, `compact_after` and `compact_cap` are accepted for the
-    reference's signature and not used: the skip length comes from
-    `cache.dist`, whose builder saturates it, and the live rays are not
-    compacted (see the module docstring). debug_iters=True also returns
-    dict(p1_trips, p2_trips, fin): the trips each phase needed and, per
-    pixel, the phase-2 trip on which its ray finished."""
+    Phase 2 runs over all lanes until an exit test at or after
+    `compact_after` trips reads a live count of at most C lanes (C is
+    `compact_cap`, else max(128, n // 4)); then the live lanes are packed
+    into C lanes (compaction.live_first), the tail marches there and its
+    results scatter back. The image is the all-lanes march's bit for bit.
+    The live count takes the place of the exit test's flag: one host read
+    either way. No compaction when C >= n, compact_after >= max_iters or
+    with debug_iters, whose per-pixel `fin` wants every lane.
+
+    `max_skip` is accepted for the reference's signature and not used: the
+    skip length comes from `cache.dist`, saturated where map/mips.py
+    makes it.
+    debug_iters=True also returns dict(p1_trips, p2_trips, fin): the trips
+    each phase needed and, per pixel, the phase-2 trip on which its ray
+    finished."""
     origin, dirs, inv_dirs, limit, state = _start_rays(
         center, half_size, world_T_cam, fx, fy, width, height, max_range,
         start_dist)
     dev = dirs.device
+    n = dirs.shape[0]
     pix_scale = 1.0 / fy
 
     n_leaf = 1 << max_depth
@@ -332,17 +350,21 @@ def cone_trace_dense(cache, center: torch.Tensor, half_size, world_T_cam,
         return cache.dist[(c[:, 2] << (2 * dist_level))
                           | (c[:, 1] << dist_level) | c[:, 0]]
 
-    def cell_exit(pos, q, shift, cell):
-        """Ray length to the exit of the cell of edge `cell` (leaf cells
-        >> shift) that holds pos; shift and cell are scalars or [N, 1]."""
-        corner = bbox0 + (q >> shift).to(torch.float32) * cell
-        t_axis = torch.where(
-            moves,
-            torch.where(forward, corner + cell - pos, corner - pos)
-            * inv_dirs,
-            torch.inf)  # axis-parallel rays never leave through this face
-        return torch.clamp(t_axis.amin(dim=-1), min=0.0)
+    def make_cell_exit(inv_, moves_, forward_):
+        def cell_exit(pos, q, shift, cell):
+            """Ray length to the exit of the cell of edge `cell` (leaf
+            cells >> shift) that holds pos; shift and cell are scalars or
+            [N, 1]."""
+            corner = bbox0 + (q >> shift).to(torch.float32) * cell
+            t_axis = torch.where(
+                moves_,
+                torch.where(forward_, corner + cell - pos, corner - pos)
+                * inv_,
+                torch.inf)  # axis-parallel rays never leave through this face
+            return torch.clamp(t_axis.amin(dim=-1), min=0.0)
+        return cell_exit
 
+    cell_exit = make_cell_exit(inv_dirs, moves, forward)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
 
     def skip_body(s):
@@ -373,44 +395,79 @@ def cone_trace_dense(cache, center: torch.Tensor, half_size, world_T_cam,
         state["fin"] = torch.where(state["active"], max_iters, 0).to(
             torch.int32)
 
-    def body(s):
-        ray_len = s["ray_len"]
-        pos = origin + dirs * ray_len[:, None]
-        q = quantize(pos)
+    def make_body(dirs_, inv_, linf_, limit_, moves_, forward_):
+        """Phase 2's trip over a set of lanes, the whole frame or the live
+        lanes packed: the per-lane arithmetic is the same either way."""
+        exit_ = make_cell_exit(inv_, moves_, forward_)
 
-        # distance-field lookup (gather 1)
-        d = dist_at(q)
-        free = d > 0
+        def body(s):
+            ray_len = s["ray_len"]
+            pos = origin + dirs_ * ray_len[:, None]
+            q = quantize(pos)
 
-        # value sample at the cone's level of detail (gather 2)
-        lod = _cone_lod(oct_size, ray_len, pix_scale, max_depth)
-        shift = max_depth - lod
-        c = spread[(q >> shift[:, None]).to(torch.int64)]
-        m = c[:, 0] | (c[:, 1] << 1) | (c[:, 2] << 2)
-        value = cache.values[mips.level_offsets(lod) + m]
-        alpha = torch.where(free, 0.0, torch.clamp(
-            packing.alpha_of(value) - 127, min=0).to(torch.float32))
+            # distance-field lookup (gather 1)
+            d = dist_at(q)
+            free = d > 0
 
-        # step: the exact exit of the current cell, plus dist - 1 cells of
-        # the guaranteed-empty L-infinity ball when in free space
-        s_lod = oct_size * 2.0 / torch.exp2(lod.to(torch.float32))
-        lev_cell = torch.where(free, cell_l, s_lod)
-        lev_shift = torch.where(free, shift_l, shift)
-        t_exit = cell_exit(pos, q, lev_shift[:, None], lev_cell[:, None])
-        skip = torch.where(free, (d - 1).to(torch.float32) * cell_l / linf,
-                           0.0)
-        step = torch.maximum(t_exit + skip + eps, min_step)
-        ray_len, rgb, w, live = _accumulate(s, value, alpha, step, limit)
-        nxt = dict(ray_len=ray_len, rgb=rgb, w=w, active=live,
-                   any=live.any())
-        if debug_iters:
-            nxt["it"] = s["it"] + s["any"]
-            nxt["fin"] = torch.where(s["active"] & ~live, nxt["it"],
-                                     s["fin"])
-        return nxt
+            # value sample at the cone's level of detail (gather 2)
+            lod = _cone_lod(oct_size, ray_len, pix_scale, max_depth)
+            shift = max_depth - lod
+            c = spread[(q >> shift[:, None]).to(torch.int64)]
+            m = c[:, 0] | (c[:, 1] << 1) | (c[:, 2] << 2)
+            value = cache.values[mips.level_offsets(lod) + m]
+            alpha = torch.where(free, 0.0, torch.clamp(
+                packing.alpha_of(value) - 127, min=0).to(torch.float32))
 
-    state["any"] = state["active"].any()
-    state = _march(body, state, "any", max_iters, exit_check_every)
+            # step: the exact exit of the current cell, plus dist - 1
+            # cells of the guaranteed-empty L-infinity ball when in free
+            # space
+            s_lod = oct_size * 2.0 / torch.exp2(lod.to(torch.float32))
+            lev_cell = torch.where(free, cell_l, s_lod)
+            lev_shift = torch.where(free, shift_l, shift)
+            t_exit = exit_(pos, q, lev_shift[:, None], lev_cell[:, None])
+            skip = torch.where(
+                free, (d - 1).to(torch.float32) * cell_l / linf_, 0.0)
+            step = torch.maximum(t_exit + skip + eps, min_step)
+            ray_len, rgb, w, live = _accumulate(s, value, alpha, step,
+                                                limit_)
+            nxt = dict(ray_len=ray_len, rgb=rgb, w=w, active=live,
+                       n_act=live.sum(dtype=torch.int32))
+            if debug_iters:
+                nxt["it"] = s["it"] + (s["n_act"] > 0)
+                nxt["fin"] = torch.where(s["active"] & ~live, nxt["it"],
+                                         s["fin"])
+            return nxt
+
+        return body
+
+    cap = compact_cap if compact_cap is not None else max(128, n // 4)
+    compacts = not debug_iters and cap < n and compact_after < max_iters
+    body = make_body(dirs, inv_dirs, linf, limit, moves, forward)
+    state["n_act"] = state["active"].sum(dtype=torch.int32)
+    full = sel = None
+    for i in range(1, max_iters + 1):
+        state = body(state)
+        if i % exit_check_every or i == max_iters:
+            continue
+        if compacts and sel is None and i >= compact_after:
+            n_act = int(state["n_act"])
+            if n_act == 0:
+                break
+            if n_act <= cap:
+                # lanes outside `sel` finished already and keep their
+                # values in `full`
+                full, sel = state, compaction.live_first(state["active"],
+                                                         cap)
+                state = {k: full[k][sel] for k in LANES}
+                state["n_act"] = full["n_act"]
+                body = make_body(dirs[sel], inv_dirs[sel], linf[sel],
+                                 limit[sel], moves[sel], forward[sel])
+        elif not bool(state["n_act"]):
+            break
+    if sel is not None:
+        for k in LANES:
+            full[k].index_copy_(0, sel, state[k])
+        state = full
     fb = _framebuffer(state, height, width)
     if debug_iters:
         return fb, dict(p1_trips=p1_trips, p2_trips=state["it"],

@@ -43,6 +43,20 @@ def exclusive_ranks(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return inc - m, count
 
 
+def live_first(active: torch.Tensor, count: int) -> torch.Tensor:
+    """The first `count` lane ids of a stable sort of the lanes by "live
+    first": the live lanes in index order, then the lowest-numbered dead
+    ones; the reference's argsort(where(active, 0, 1))[:count]
+    (octree_slam_tpu/render/raycast.py:486-487). A live lane's rank is its
+    prefix count, a dead lane's the live total plus its prefix count among
+    the dead; one scatter inverts the ranks. Returns int64[count]."""
+    ranks, n_live = exclusive_ranks(active)
+    lane = torch.arange(active.numel(), dtype=torch.int64,
+                        device=active.device)
+    rank = torch.where(active, ranks, n_live + lane - ranks)
+    return torch.empty_like(lane).scatter_(0, rank, lane)[:count]
+
+
 def scatter_set_(out: torch.Tensor, idx: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """out[idx[i]] = values[i] in place along dim 0, dropping rows whose

@@ -9,10 +9,10 @@ the cut of a top-C selection can differ, as test_torch_hybrid.py states):
     selected sets agree on >= 99% of their lanes (sel_decimate: equal),
     the per-lane weights within 1e-3 on >= 99% of the common lanes, the
     image within 1e-4 on >= 99% of pixels, all finite;
-  * the compacting march (compact_after < band_iters): the reference's
-    sorts its live lanes into C/4 lanes, the port marches all C with an
-    exit test; its image equals the port's fixed-trip march bit for bit,
-    and its trip count is the reference's;
+  * the compacting march (compact_after < band_iters): both packages
+    pack the live lanes into C/4 lanes once they fit; its image equals
+    the port's fixed-trip march bit for bit, and its trip count is the
+    reference's;
   * crawl 4 x 8 trips within 0.3 dB of crawl 1 x 32 against the exact
     march, on the reference's own scene for that contract
     (tests/test_hybrid.py:155-195);

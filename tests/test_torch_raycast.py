@@ -116,8 +116,8 @@ def test_cone_trace_dense_matches(scene):
     for name in ("p1_trips", "p2_trips"):
         assert abs(int(tdbg[name]) - int(jdbg[name])) <= 2, name
     assert 0 < int(tdbg["p2_trips"]) < MARCH["max_iters"]
-    # the reference's compacted march is its uncompacted one bit for bit;
-    # the port takes and ignores the compaction arguments
+    # the compacted march is the uncompacted one bit for bit, in both
+    # packages
     jc = jrc.cone_trace_dense(
         jcache, jnp.zeros(3), jnp.float32(HALF), jnp.asarray(pose), F, F,
         dist_level=LVL, compact_after=2, compact_cap=1024, **MARCH)
