@@ -74,7 +74,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      per attempt);
  16. tum: a 14-frame 640x480 TUM-format sequence written by the port and
      replayed through its CLI, with slam_fps (frames staged on the card)
-     and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder);
+     and e2e_fps_incl_decode_upload (decoded and uploaded by the feeder),
+     and the per-array ingest (prefetched(packed=False)) equal to it;
      [native]: whether the native host I/O runtime (io/native.py) built,
      which PNG decoder the TUM reader took, and the native decode of the
      sequence's files against the pure decoder, byte for byte;
@@ -100,8 +101,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      word); the grid into the octree with a 640x480 cone trace, a 640x480
      textured rasterization, the voxel view as splats and as cubes; and
      the CLI's --save-mesh after the orbit (8 vertices and 12 faces a
-     leaf). These paths reach no hand kernel; only the CLI's orbit
-     launches the two stencils;
+     leaf); a 16-colour palette PNG read by the port's codec (which needs
+     no PIL; whether PIL is installed is printed) voxelizes as the same
+     texture stored as RGB8.
+     These paths reach no hand kernel; only the CLI's orbit launches the
+     two stencils;
  19. knobs: bilateral_window, the bilateral of any window size, against
      its plain version: each compiled radius (sizes 3, 5, 9, 11, 13) on
      the main path's frame, sizes 5 and 11 on a ragged frame and the
@@ -119,7 +123,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and at 96 trips it packs its live lanes and still does;
      the crawl keeps the reference's contract (4 x 8 within 0.3 dB of
      1 x 32) on the reference's own 80x60 scene, and its gap at full
-     width (4 x 6 against 1 x 24) is printed.
+     width (4 x 6 against 1 x 24) is printed;
+ 20. fuzz_map: tests/test_fuzz_map.py's interplay of insert (paged on
+     last_key), insert_exact, grow_capacity and reroot_double at a run's
+     size (FUZZ_SPEC: depth 9 at 2 cm, 307,200-point inserts paging at
+     65,536 uniques, a pool grown from 2^20 nodes, one re-root to depth
+     10), the same ops on the card and on the CPU: after every round the
+     two pools equal word for word, and at the end their refreshed
+     interiors and extract_all_leaves too, with each op's ms on the card.
 Every orbit starts with the kernels' launch counts at 0 and must find each
 kernel of its path launched once per frame and the others never (plus one
 batched launch per recovery attempt), or once per row slab and frame on
@@ -210,6 +221,20 @@ RELOC_CANDIDATES = 4
 # the relocalize phase's blanked frame, and its bound on the last frame's
 # translation error (the reference package's test)
 RELOC_GARBAGE_FRAME, RELOC_ERR_MAX_M = 8, 0.05
+# [fuzz_map]: tests/test_fuzz_map.py's op interplay at a run's size: depth
+# 9 at 2 cm leaves (half size 5.12 m), inserts of a 640x480 frame's 307,200
+# points on a plane patch of 6 x 4.4 m at insert_unique_cap 65,536 (about
+# 100,000 distinct leaves, so that they page),
+# exact writes of up to 60,000 keys, a pool that ensure_headroom's rule
+# grows from 2^20 nodes, one reroot_double to depth 10; the ops of each
+# round in FUZZ_ROUNDS, their data drawn from FUZZ_SEED
+FUZZ_SPEC = dict(depth=9, capacity=1 << 20, half_size=5.12,
+                 unique_cap=65_536, insert_n=(307_200, 307_201),
+                 exact_n=(40_000, 60_000), max_capacity=1 << 24,
+                 max_reroots=1, max_depth=10, surface=True)
+FUZZ_ROUNDS = ("insert", "exact", "insert", "grow", "reroot", "insert",
+               "exact", "insert")
+FUZZ_SEED = 0
 
 
 
@@ -1514,6 +1539,105 @@ def phase_grow(smi: str, cfg, frames, gts, registry, sizes):
     return launches
 
 
+def _test_helper(name: str):
+    """A JAX-free helper module of tests/ (torch_fuzz, png_encoder); the
+    directory goes at the end of sys.path, so it shadows no module."""
+    import importlib
+    import sys
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if d not in sys.path:
+        sys.path.append(d)
+    return importlib.import_module(name)
+
+
+def phase_fuzz_map(smi: str):
+    """Phase 20: the map's op interplay at a run's size: the rounds of
+    FUZZ_ROUNDS (tests/torch_fuzz.py's draws, each op given, FUZZ_SPEC's
+    sizes) on a pool on the card and on one on the CPU, held word for word
+    after every round and, refreshed, with their leaves at the end."""
+    tf = _test_helper("torch_fuzz")
+    from octree_slam_tpu_torch.map import svo
+    t_phase = time.perf_counter()
+    spec = tf.Spec(**FUZZ_SPEC)
+    ms = {"cuda": [], "cpu": []}
+
+    def timed(dev):
+        def apply(pool, op):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool, passes = tf.apply_port(pool, op)
+            torch.cuda.synchronize()
+            ms[dev].append(1e3 * (time.perf_counter() - t0))
+            return pool, passes
+        return apply
+
+    rounds, ops = [], []
+
+    def record(step, rnd, targets, passes):
+        card, cpu = targets
+        recs = []
+        for op, p, card_ms, cpu_ms in zip(rnd.ops, passes,
+                                          ms["cuda"][len(ops):],
+                                          ms["cpu"][len(ops):]):
+            rec = {"op": op.kind, "card_ms": card_ms, "cpu_ms": cpu_ms,
+                   "passes": p}
+            if op.kind == "grow":
+                rec["capacity"] = op.capacity
+            elif op.kind == "insert":
+                rec["points"] = int(op.points.shape[0])
+            elif op.kind == "exact":
+                rec["keys"] = int(op.keys.shape[0])
+                rec["overwrite"] = op.overwrite
+            recs.append(rec)
+        ops.extend(recs)
+        rounds.append({
+            "round": step, "drawn": rnd.label, "ops": recs,
+            "depth": rnd.depth, "capacity": card.capacity,
+            "n_nodes": int(card.n_nodes),
+            "half_size": float(card.half_size),
+            "differing_words": tf.differing_words(tf.pool_arrays(card),
+                                                  tf.pool_arrays(cpu))})
+        print(f"[fuzz_map] {smi} | " + json.dumps(rounds[-1]))
+
+    pools = [svo.create(spec.capacity, torch.zeros(3), spec.half_size,
+                        device=dev) for dev in ("cuda", "cpu")]
+    tf.run_rounds(np.random.default_rng(FUZZ_SEED), pools,
+                  (timed("cuda"), timed("cpu")), spec, FUZZ_ROUNDS, record)
+    depth = rounds[-1]["depth"]
+    leaves = []
+    for p in pools:
+        ref, keys, nodes, words = tf.leaf_words(p, depth, 1 << 19)
+        leaves.append({"value": ref.value.cpu().numpy(), "keys": keys,
+                       "nodes": nodes, "words": words})
+    refreshed_diff = tf.differing_words(*leaves)
+    card = pools[0]
+    summary = {
+        "rounds": len(rounds), "ops": [o["op"] for o in ops],
+        "grows": sum(o["op"] == "grow" for o in ops),
+        "paged_inserts": sum(o["op"] == "insert" and o["passes"][0] > 1
+                             for o in ops),
+        "depth": depth, "capacity": card.capacity,
+        "n_nodes": int(card.n_nodes), "leaves": int(leaves[1]["keys"].size),
+        "differing_words": sum(r["differing_words"] for r in rounds),
+        "refreshed_differing_words": refreshed_diff,
+        "card_ms_by_op": {k: sum(o["card_ms"] for o in ops if o["op"] == k)
+                          for k in ("insert", "exact", "grow", "reroot")},
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"[fuzz_map] {smi} | " + json.dumps(summary))
+    for r in rounds:
+        check(r["differing_words"] == 0,
+              f"[fuzz_map] round {r['round']} ({r['drawn']}): "
+              f"{r['differing_words']} words differ, card against CPU")
+    check(refreshed_diff == 0, f"[fuzz_map] the refreshed pools or their "
+          f"leaves differ in {refreshed_diff} words")
+    check(all(o["passes"][0] == o["passes"][1] for o in ops),
+          "[fuzz_map] the card and the CPU paged differently")
+    check(summary["grows"] >= 2 and summary["paged_inserts"] > 0
+          and depth == FUZZ_SPEC["max_depth"] and summary["leaves"] > 0,
+          f"[fuzz_map] the rounds did not grow twice, page and re-root: "
+          f"{summary}")
+
+
 def phase_relocalize(smi: str, cfg, frames, gts):
     """Phase 15: the orbit with frame RELOC_GARBAGE_FRAME blanked (zero
     depth and colour) recovers by relocalization; each attempt is one
@@ -1576,7 +1700,8 @@ def phase_tum(smi: str):
     port, replayed through its CLI (the last JSON line and the trajectory
     file are checked), then timed as bench_configs.config_tum times it:
     slam_fps with the frames staged on the card, and
-    e2e_fps_incl_decode_upload through the decoding feeder."""
+    e2e_fps_incl_decode_upload through the decoding feeder; the per-array
+    ingest (prefetched(packed=False)) yields the packed path's frames."""
     from octree_slam_tpu_torch import SLAMConfig, app
     from octree_slam_tpu_torch.io import tum
     from octree_slam_tpu_torch.sensor import cuda_ops
@@ -1620,6 +1745,15 @@ def phase_tum(smi: str):
                                initial_pose=init, gt_fn=ds.gt_pose,
                                device="cuda")
             staged = [ds.frame(i) for i in range(len(ds))]
+            # the reference's per-array upload against the packed one
+            per_array = list(ds.prefetched(packed=False))
+            packed = list(ds.prefetched())
+            per_array_equal = len(per_array) == len(packed) == len(ds) and all(
+                torch.equal(a.depth, b.depth) and torch.equal(a.color, b.color)
+                and torch.equal(a.timestamp, b.timestamp)
+                and torch.equal(a.depth, c.depth)
+                for a, b, c in zip(per_array, packed, staged))
+            del per_array, packed
             torch.cuda.synchronize()
             res = app.run_slam(lambda i: staged[i], len(ds), cfg,
                                initial_pose=init, gt_fn=ds.gt_pose,
@@ -1629,7 +1763,10 @@ def phase_tum(smi: str):
         "png_decode_ms_per_frame": decode_ms,
         "slam_fps": res.fps, "e2e_fps_incl_decode_upload": e2e.fps,
         "ate_rmse_m": res.ate_rmse, "e2e_ate_rmse_m": e2e.ate_rmse,
+        "per_array_frames_equal_packed": per_array_equal,
         "launches": launches}))
+    check(per_array_equal, "[tum] prefetched(packed=False) yields other "
+          "frames than the packed upload")
     check(rec["frames"] == ORBIT_FRAMES and rec["diverged"] is False,
           f"[tum] the CLI run: {rec}")
     check(rec["ate_rmse"] is not None and rec["ate_rmse"] < FEATURE_ATE_MAX_M,
@@ -1717,6 +1854,15 @@ def _write_textured_obj(path, v, n, f, uv):
             out.write("\n")
 
 
+def _palette_checker(size=256, block=32):
+    """A 16-colour palette texture: (indices u8[size, size], palette
+    u8[16, 3]); the checker's cells cycle through the palette."""
+    y, x = np.mgrid[:size, :size]
+    idx = ((x // block + 3 * (y // block)) % 16).astype(np.uint8)
+    pal = np.random.default_rng(6).integers(0, 256, (16, 3)).astype(np.uint8)
+    return idx, pal
+
+
 def _write_assets(d, name, n_sphere, n_torus):
     """The mesh as a textured OBJ and the checker through the port's BMP
     writer; returns (obj path, bmp path, faces)."""
@@ -1792,7 +1938,8 @@ def phase_offline(smi: str, profile=None):
     octree, a 640x480 cone trace of it and a 640x480 textured
     rasterization of the mesh; the voxel view as splats and as cubes; and
     the CLI's --save-mesh after the 14-frame orbit, 8 vertices and 12
-    faces a leaf."""
+    faces a leaf. A 16-colour palette PNG, read by the port's codec,
+    voxelizes the mesh word for word as the same texture stored as RGB8."""
     from octree_slam_tpu_torch import SLAMConfig, app
     from octree_slam_tpu_torch.core import camera
     from octree_slam_tpu_torch.map import morton
@@ -1855,6 +2002,30 @@ def phase_offline(smi: str, profile=None):
                               soup, lo, hi, capacity=1 << 23, **kw),
                           rec["abuffer_ms"])
         check(not bool(ab.overflowed), "[offline] the A-buffer overflowed")
+        # a palette PNG through the port's codec (no PIL needed), against
+        # the same texture as RGB8; both files written by the tests'
+        # encoder (random row filters), not by the codec under check
+        import importlib.util
+        enc = _test_helper("png_encoder")
+        idx, pal = _palette_checker()
+        pal_png = os.path.join(d, "palette.png")
+        rgb_png = os.path.join(d, "palette_rgb8.png")
+        enc.write_png(pal_png, idx, 8, 3, palette=pal, seed=1)
+        enc.write_png(rgb_png, pal[idx], 8, 2, seed=2)
+        ptex = Scene(cfg, device="cuda").load_texture(pal_png)
+        rtex = Scene(cfg, device="cuda").load_texture(rgb_png)
+        pgrid = vox.voxelize(soup, ptex.data, lo, hi, **kw)
+        rgrid = vox.voxelize(soup, rtex.data, lo, hi, **kw)
+        rec["palette_texture"] = {
+            "pil_installed": importlib.util.find_spec("PIL") is not None,
+            "texels_differing": int((ptex.data != rtex.data).sum()),
+            "grid_words_differing": int((pgrid != rgrid).sum()),
+            "occupied_voxels": int((pgrid != 0).sum())}
+        check(rec["palette_texture"]["texels_differing"] == 0
+              and rec["palette_texture"]["grid_words_differing"] == 0
+              and rec["palette_texture"]["occupied_voxels"] > 0,
+              f"[offline] the palette texture: {rec['palette_texture']}")
+        del pgrid, rgrid, ptex, rtex
         ab_set = torch.unique_consecutive(ab.frag_voxel[:int(ab.count)])
         check(torch.equal(ab_set, torch.nonzero(occ).squeeze(1)
                           .to(torch.int32)),
@@ -2715,6 +2886,7 @@ def main(argv=None):
     window = f"splat+bilateral{WINDOW_SIZE}"
     report[WINDOW_KERNEL], launches[window] = phase_knobs(
         smi, cfg, hybrid_cfg, frames, gts, fidelity)
+    phase_fuzz_map(smi)
     # each kernel's main path: the splat orbit at the window that runs it
     main_path = {name: "splat" for name in KERNELS}
     main_path[WINDOW_KERNEL] = window

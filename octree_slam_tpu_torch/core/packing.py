@@ -52,16 +52,21 @@ def blend_value(old_value: torch.Tensor, new_rgb: torch.Tensor) -> torch.Tensor:
       out_rgb = new_rgb*255 * (1 - a/256) + old_rgb * (a/256)
       out_a   = min(255, a + 2)
     `new_rgb` is float in [0,1], shape [..., 3]; `old_value` int32[...].
+    Every op rounds on its own, as written, like the reference's
+    blend_value called op by op."""
+    return blend_mean(old_value, new_rgb * 255.0)
 
-    Every op rounds on its own, as written. XLA's compiled reference
-    reassociates `new_rgb*255*f1` and contracts the sum into one FMA, so
-    a channel can land one level apart from it at an integer boundary."""
+
+def blend_mean(old_value: torch.Tensor, mean_rgb: torch.Tensor) -> torch.Tensor:
+    """blend_value with the sample already in 0..255 units, `mean_rgb`
+    f32[..., 3]: out_rgb = mean * (1 - a/256) + old_rgb * (a/256).
+    svo.insert blends the colour sum over the sample count with this, as
+    the reference's compiled insert does: XLA cancels the mean's `/ 255.0`
+    against the blend's `* 255.0`. Rounding the mean to [0, 1] first and
+    back lands a channel one level apart in a few leaves of a million."""
     r, g, b, a = unpack_rgba8(old_value)
     old_rgb = torch.stack([r, g, b], dim=-1).to(torch.float32)
-    af = a.to(torch.float32)[..., None]
-    f2 = af / 256.0
-    f1 = 1.0 - f2
-    out = new_rgb * 255.0 * f1 + old_rgb * f2
-    out = out.to(torch.int32)
+    f2 = a.to(torch.float32)[..., None] / 256.0
+    out = (mean_rgb * (1.0 - f2) + old_rgb * f2).to(torch.int32)
     new_a = torch.clamp(a + 2, max=255)
     return pack_rgba8(out[..., 0], out[..., 1], out[..., 2], new_a)

@@ -4,12 +4,13 @@ The reader replaces the vendored objUtil parser (objloader.cpp:14-129,
 obj::buildVBOs obj.cpp:33-135): v / vt / vn lines, faces with any of the
 v, v/vt, v//vn, v/vt/vn index forms (negative indices too), fan
 triangulation of polygons, the 'v x y z r g b' colour extension, smooth
-vertex normals when the file has none. The port always takes the
-reference's Python parser; the native C++ parser is bound in io/native.py
-(load_obj_arrays) but not wired here, since its smooth normals agree with
-this parser's only within 1e-6. The line parse is the reference's; the
-per-corner gathers and the normal sums run vectorised in the same order,
-so the arrays are the same bit for bit.
+vertex normals when the file has none. `load_obj` takes the reference's
+route: the native C++ parser (io/native.py load_obj_arrays) when the
+runtime is built and the file has no vertex colours, else the Python
+parser, whose line parse is the reference's and whose per-corner gathers
+and normal sums run vectorised in the same order. Either way the arrays
+equal the reference's load_obj bit for bit on the same host; the two
+parsers' smooth normals differ within 1e-6, as the reference's do.
 """
 
 from __future__ import annotations
@@ -25,8 +26,47 @@ def _parse_index(tok: str, count: int) -> int:
     return i - 1 if i > 0 else count + i
 
 
+def _has_vertex_colors(path: str) -> bool:
+    """Sniff the first 'v ' line for the 7-field vertex-colour extension
+    (a file whose first face comes first has none)."""
+    try:
+        with open(path, "r") as f:
+            for line in f:
+                s = line.strip()
+                if s.startswith("v "):
+                    return len(s.split()) >= 7
+                if s.startswith("f "):
+                    return False
+    except OSError:
+        pass
+    return False
+
+
+def _mesh(v, n, colors, f, uv, lo, hi, device) -> Mesh:
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Mesh(vertices=t(v), normals=t(n), colors=t(colors), faces=t(f),
+                texcoords=t(uv), bbox=BoundingBox(t(lo), t(hi)))
+
+
 def load_obj(path: str, device="cuda") -> Mesh:
-    """Parse `path` into a Mesh on `device`."""
+    """Parse `path` into a Mesh on `device`: the native parser where the
+    runtime is built and the file has no vertex colours (it reads 'v x y
+    z' only, so a colour-extended file, save_obj's, takes the Python path
+    and keeps its colours), else the Python parser; the reference's rule
+    (octree_slam_tpu/io/obj.py load_obj)."""
+    try:
+        from octree_slam_tpu_torch.io import native
+        if native.available() and not _has_vertex_colors(path):
+            v, n, f, uv, lo, hi = native.load_obj_arrays(path)
+            return _mesh(v, n, np.ones_like(v), f, uv, lo, hi, device)
+    except (ImportError, OSError):
+        pass
+    return _load_obj_py(path, device)
+
+
+def _load_obj_py(path: str, device) -> Mesh:
     positions = []
     vcolors = []
     texcoords = []
@@ -98,13 +138,8 @@ def load_obj(path: str, device="cuda") -> Mesh:
     colors = (np.asarray([c if c is not None else [1.0, 1.0, 1.0]
                           for c in vcolors], np.float32)
               if vcolors else np.ones_like(v))
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return Mesh(vertices=t(v), normals=t(vnorm.astype(np.float32)),
-                colors=t(colors), faces=t(fidx), texcoords=t(fuv),
-                bbox=BoundingBox(t(lo), t(hi)))
+    return _mesh(v, vnorm.astype(np.float32), colors, fidx, fuv, lo, hi,
+                 device)
 
 
 def save_obj(path: str, mesh: Mesh) -> None:

@@ -1,11 +1,14 @@
 """PNG reading and writing on zlib and numpy alone (the port's counterpart
 of the reference package's native libpng codec and its PIL fallback,
-octree_slam_tpu/io/native.py and io/tum.py:124-134).
+octree_slam_tpu/io/native.py and io/tum.py:124-134, and of the PIL reader
+behind its Scene.load_texture).
 
-The reader takes what RGB-D datasets store: 16-bit greyscale (TUM depth),
-8-bit greyscale, 8-bit RGB and RGBA, non-interlaced, with any of the five
-row filters. Palette images, other bit depths and Adam7 interlacing raise.
-The writer stores the same kinds with filter 0 on every row.
+The reader takes every PNG the standard defines: greyscale at 1, 2, 4, 8
+and 16 bits, RGB and RGBA at 8 and 16, grey+alpha at 8 and 16, palette
+images at 1, 2, 4 and 8 bits, with any of the five row filters, plain or
+Adam7-interlaced. `to_rgb8` turns what it returns into 8-bit RGB as PIL's
+convert("RGB") does. The writer stores 16-bit grey, 8-bit grey, RGB and
+RGBA with filter 0 on every row.
 """
 
 from __future__ import annotations
@@ -16,8 +19,13 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels
-_CHANNELS = {0: 1, 2: 3, 6: 4}
+# colour type -> channels, and the bit depths the standard allows it
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_BITS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+         6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -77,40 +85,96 @@ def _unfilter(raw: np.ndarray, height: int, stride: int,
     return out
 
 
+def _stride(width: int, ch: int, bits: int) -> int:
+    return (width * ch * bits + 7) // 8
+
+
+def _samples(raw: np.ndarray, height: int, width: int, ch: int,
+             bits: int) -> np.ndarray:
+    """One (sub-)image's filtered rows -> its samples [height, width, ch]
+    as stored: u16 at 16 bits, else u8 (1, 2 and 4-bit samples unpacked,
+    not scaled)."""
+    stride = _stride(width, ch, bits)
+    rows = _unfilter(raw, height, stride, max(1, ch * bits // 8))
+    if bits == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(height, width, ch)
+    if bits < 8:
+        rows = np.unpackbits(rows, axis=1).reshape(height, -1, bits)
+        weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+        rows = (rows * weights).sum(-1, dtype=np.uint8)[:, :width * ch]
+    return rows.reshape(height, width, ch)
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG file: u16[H, W] for 16-bit greyscale, u8[H, W] for
-    8-bit greyscale, u8[H, W, 3 | 4] for RGB / RGBA."""
+    greyscale at 8 bits and below (1, 2 and 4-bit samples scaled to
+    0..255), u8 / u16 [H, W, 2 | 3 | 4] for grey+alpha, RGB and RGBA at 8 /
+    16 bits, and u8[H, W, 3] for a palette image, its indices looked up in
+    PLTE (a tRNS chunk's transparency is not read)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+    header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, bits, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: colour type {ctype} is not supported "
-                         f"(greyscale, RGB and RGBA are)")
-    if bits not in (8, 16) or (bits == 16 and ctype != 0):
-        raise ValueError(f"{path}: {bits}-bit colour type {ctype} is not "
-                         f"supported")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
+    if bits not in _BITS.get(ctype, ()):
+        raise ValueError(f"{path}: {bits}-bit colour type {ctype} is not a "
+                         f"PNG kind")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
     ch = _CHANNELS[ctype]
-    bpp = ch * bits // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width * bpp + 1):
+    # (x0, y0, dx, dy) of every (sub-)image in stream order
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [((height - y0 + dy - 1) // dy, (width - x0 + dx - 1) // dx)
+             for x0, y0, dx, dy in passes]
+    need = sum(h * (_stride(w, ch, bits) + 1)
+               for h, w in sizes if h and w)
+    if raw.size != need:
         raise ValueError(f"{path}: image data holds {raw.size} bytes, the "
-                         f"header needs {height * (width * bpp + 1)}")
-    img = _unfilter(raw, height, width * bpp, bpp)
-    if bits == 16:
-        return img.view(">u2").astype(np.uint16).reshape(height, width)
-    return img.reshape((height, width) if ch == 1 else (height, width, ch))
+                         f"header needs {need}")
+    img = np.empty((height, width, ch), np.uint16 if bits == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (h, w) in zip(passes, sizes):
+        if not (h and w):
+            continue
+        n = h * (_stride(w, ch, bits) + 1)
+        img[y0::dy, x0::dx] = _samples(raw[pos:pos + n], h, w, ch, bits)
+        pos += n
+    if ctype == 3:
+        # indices past the palette's end read black
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:palette.shape[0]] = palette[:256]
+        return lut[img[..., 0]]
+    if bits < 8:
+        img = img * np.uint8(255 // ((1 << bits) - 1))
+    return img[..., 0] if ch == 1 else img
+
+
+def to_rgb8(img: np.ndarray) -> np.ndarray:
+    """read_png's image as u8[H, W, 3], as PIL's convert("RGB") makes it
+    (PIL 12.1): alpha dropped, grey repeated, 16-bit grey clipped to 255,
+    16-bit colour and grey+alpha reduced to their high byte."""
+    if img.dtype == np.uint16:
+        img = (np.minimum(img, 255) if img.ndim == 2 else img >> 8).astype(
+            np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    elif img.shape[-1] == 2:
+        img = img[..., :1]
+    return np.ascontiguousarray(np.broadcast_to(
+        img[..., :3], img.shape[:2] + (3,)))
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -12,8 +12,10 @@ with the port's own codec (io/png.py); both give the same bytes.
 `TUMDataset.prefetched` decodes frames in a feeder thread `ahead` frames in
 front of the consumer and uploads each as one packed u8 buffer (depth as
 u16 little-endian bytes, then rgb): a pinned host buffer, one non-blocking
-copy, a split on the device. The feeder always ends its queue, with a
-sentinel or with the exception that stopped it, which the consumer raises.
+copy, a split on the device; with packed=False as two such buffers, depth
+and rgb, the reference's per-array path. The feeder always ends its queue,
+with a sentinel or with the exception that stopped it, which the consumer
+raises.
 """
 
 from __future__ import annotations
@@ -41,15 +43,15 @@ def pack_frame(depth_mm: np.ndarray, rgb: np.ndarray) -> np.ndarray:
                            rgb.ravel()])
 
 
-def _split_packed(buf: torch.Tensor, ts: float, *, h: int, w: int) -> Frame:
-    """pack_frame's buffer on the device -> Frame (depth as int32 mm)."""
-    n = h * w
-    d = buf[:2 * n].view(n, 2).to(torch.int32)
-    depth = (d[:, 0] | (d[:, 1] << 8)).view(h, w)
-    color = buf[2 * n:].view(h, w, 3)
-    return Frame(depth=depth, color=color,
+def _frame_of(depth_bytes: torch.Tensor, rgb: torch.Tensor, ts: float, *,
+              h: int, w: int) -> Frame:
+    """Depth as u16 little-endian bytes and rgb bytes, on the device ->
+    Frame (depth as int32 mm)."""
+    d = depth_bytes.view(h * w, 2).to(torch.int32)
+    return Frame(depth=(d[:, 0] | (d[:, 1] << 8)).view(h, w),
+                 color=rgb.view(h, w, 3),
                  timestamp=torch.full((), ts, dtype=torch.float32,
-                                      device=buf.device))
+                                      device=rgb.device))
 
 
 def _read_png(path: str) -> np.ndarray:
@@ -157,14 +159,20 @@ class TUMDataset:
             timestamp=torch.full((), td, dtype=torch.float32,
                                  device=self.device))
 
-    def prefetched(self, ahead: int = 2):
+    def prefetched(self, n_threads: int = 3, capacity: int = 8,
+                   packed: bool = True, ahead: int = 2):
         """Generator of Frames decoded and uploaded by a feeder thread
         `ahead` frames in front of the consumer; ahead=0 decodes in the
-        caller's thread. Each frame is one packed upload (see the module
-        docstring); on a card the host buffers are pinned, one per frame in
-        flight, each reused only after its copy's event has completed.
-        With the native runtime the PNGs decode in its threaded prefetcher
-        (native/src/prefetch.cpp), the feeder's source."""
+        caller's thread. Each frame is one packed upload, or with
+        packed=False two, depth and rgb (see the module docstring); the
+        frames are the same either way. On a card the host buffers are
+        pinned, one set per frame in flight, each reused only after its
+        copies' event has completed. With the native runtime the PNGs
+        decode in its threaded prefetcher (native/src/prefetch.cpp) on
+        `n_threads` threads holding up to `capacity` decoded frames, the
+        feeder's source. The reference's signature; without the native
+        runtime the reference decodes in the caller's thread, the port
+        in its feeder."""
         if not self.pairs:
             return
         cuda = self.device.type == "cuda"
@@ -174,7 +182,8 @@ class TUMDataset:
             pf = native.FramePrefetcher(
                 [os.path.join(self.root, fd) for (_, fd), _ in self.pairs],
                 [os.path.join(self.root, fr) for _, (_, fr) in self.pairs],
-                w, h, depth_to_mm=1.0 / DEPTH_FACTOR_TO_MM)
+                w, h, depth_to_mm=1.0 / DEPTH_FACTOR_TO_MM,
+                n_threads=n_threads, capacity=capacity)
 
         def decoded(i: int):
             if pf is None:
@@ -192,24 +201,35 @@ class TUMDataset:
         pinned: list = [None] * slots
         events: list = [None] * slots
 
-        def upload(i: int) -> Frame:
-            depth_mm, rgb, ts = decoded(i)
-            h, w = depth_mm.shape
-            packed = pack_frame(depth_mm, rgb)
+        def to_device(i: int, parts) -> list:
             if not cuda:
-                return _split_packed(torch.from_numpy(packed).to(
-                    self.device), ts, h=h, w=w)
+                return [torch.from_numpy(p).to(self.device) for p in parts]
             k = i % slots
             if events[k] is not None:
                 events[k].synchronize()
-            if pinned[k] is None or pinned[k].numel() != packed.size:
-                pinned[k] = torch.empty(packed.size, dtype=torch.uint8,
-                                        pin_memory=True)
-            pinned[k].numpy()[:] = packed
-            buf = pinned[k].to(self.device, non_blocking=True)
+            if pinned[k] is None or [b.numel() for b in pinned[k]] != [
+                    p.size for p in parts]:
+                pinned[k] = [torch.empty(p.size, dtype=torch.uint8,
+                                         pin_memory=True) for p in parts]
+            bufs = []
+            for host, p in zip(pinned[k], parts):
+                host.numpy()[:] = p
+                bufs.append(host.to(self.device, non_blocking=True))
             events[k] = torch.cuda.Event()
             events[k].record()
-            return _split_packed(buf, ts, h=h, w=w)
+            return bufs
+
+        def upload(i: int) -> Frame:
+            depth_mm, rgb, ts = decoded(i)
+            h, w = depth_mm.shape
+            if packed:
+                (buf,) = to_device(i, [pack_frame(depth_mm, rgb)])
+                d, c = buf[:2 * h * w], buf[2 * h * w:]
+            else:
+                d, c = to_device(i, [
+                    depth_mm.astype("<u2").view(np.uint8).ravel(),
+                    np.ascontiguousarray(rgb).ravel()])
+            return _frame_of(d, c, ts, h=h, w=w)
 
         if ahead <= 0:
             try:

@@ -143,7 +143,7 @@ def _at(c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def _unique_compact(skeys, svalid, scolors, unique_cap: int):
     """Compact sorted keys to their first `unique_cap` uniques with exact
     per-key colour means from int32 cumulative-sum differences.
-    Returns (ukeys i32[U], mean_rgb f32[U,3] in [0,1], ulive bool[U],
+    Returns (ukeys i32[U], mean_rgb f32[U,3] in [0, 255], ulive bool[U],
     u_count i32[] = all uniques, processed or not)."""
     n = skeys.shape[0]
     dev = skeys.device
@@ -173,8 +173,10 @@ def _unique_compact(skeys, svalid, scolors, unique_cap: int):
     end = torch.clamp(nstart - 1, 0, n - 1)
     seg = _at(csum, end) - _at(csum, upos - 1)
     cnt = seg[:, 3].to(torch.float32)
-    mean_rgb = seg[:, :3].to(torch.float32) / torch.clamp(
-        cnt, min=1.0)[:, None] / 255.0
+    # in 0..255 units: the reference's compiled insert cancels its
+    # `/ 255.0` against the blend's `* 255.0` (packing.blend_mean)
+    mean_rgb = seg[:, :3].to(torch.float32) / torch.clamp(cnt,
+                                                          min=1.0)[:, None]
     ulive = live_row & (ukeys != morton.INVALID_KEY)
     return ukeys, mean_rgb, ulive, u_count
 
@@ -413,7 +415,7 @@ def insert(pool: SVONodePool, points: torch.Tensor, colors: torch.Tensor,
 
     # leaf blend (uniques are already deduplicated)
     leaf_ok = ulive & leaf_reached
-    blended = packing.blend_value(old, mean_rgb)
+    blended = packing.blend_mean(old, mean_rgb)
     compaction.scatter_set_(pool.value, torch.where(leaf_ok, cur, cap),
                             blended)
 

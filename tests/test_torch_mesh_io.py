@@ -1,7 +1,9 @@
 """Port parity for the mesh I/O layer: core types (Mesh, Camera, the box
 helpers), se3.transform_points / transform_dirs, core/camera.py, the OBJ
-reader and writer against the JAX package's Python parser
-(_load_obj_py), the BMP reader and metrics.rpe.
+reader and writer against the JAX package's (its Python parser
+_load_obj_py, and its public load_obj: the native parser where the
+runtime builds and the file has no vertex colours, else the Python one),
+the BMP reader and metrics.rpe.
 
 Tolerances: parsed arrays, boxes, BMP texels and integer data equal;
 matrices and transformed points within 1e-6 (their 3- and 4-term sums are
@@ -162,13 +164,32 @@ def test_camera_builders(eye, center, fov, aspect):
         np.asarray(jcamera.perspective(fov, aspect, 0.1, 50.0)), atol=1e-6)
 
 
-@pytest.mark.parametrize("text", [CUBE_OBJ, NEG_OBJ, COLOR_OBJ],
-                         ids=["cube_vt", "neg_vn_fan", "colors"])
+OBJ_TEXTS = pytest.mark.parametrize(
+    "text", [CUBE_OBJ, NEG_OBJ, COLOR_OBJ],
+    ids=["cube_vt", "neg_vn_fan", "colors"])
+
+
+@OBJ_TEXTS
 def test_load_obj_matches_reference_parser(tmp_path, text):
+    """The port's Python parser against the reference's, whatever route
+    the public load_obj takes on this host."""
+    path = tmp_path / "m.obj"
+    path.write_text(text)
+    t = obj._load_obj_py(str(path), device=DEVICE)
+    j = jobj._load_obj_py(str(path))
+    _mesh_equal(t, j)
+    assert t.num_faces == j.num_faces
+
+
+@OBJ_TEXTS
+def test_load_obj_matches_reference_public(tmp_path, text):
+    """The public load_obj of both packages: the native parser where the
+    runtime builds and the file has no vertex colours, else the Python
+    one."""
     path = tmp_path / "m.obj"
     path.write_text(text)
     t = obj.load_obj(str(path), device=DEVICE)
-    j = jobj._load_obj_py(str(path))
+    j = jobj.load_obj(str(path))
     _mesh_equal(t, j)
     assert t.num_faces == j.num_faces
 
@@ -193,7 +214,9 @@ def test_obj_round_trip(tmp_path):
     jobj.save_obj(str(jp), jm)
     assert tp.read_text() == jp.read_text()
     back = obj.load_obj(str(tp), device=DEVICE)
-    _mesh_equal(back, jobj._load_obj_py(str(jp)))
+    _mesh_equal(back, jobj.load_obj(str(jp)))
+    _mesh_equal(obj._load_obj_py(str(tp), device=DEVICE),
+                jobj._load_obj_py(str(jp)))
     np.testing.assert_allclose(back.vertices.numpy(), v, atol=1e-6)
     np.testing.assert_allclose(back.colors.numpy(), c, atol=1e-4)
     np.testing.assert_array_equal(back.faces.numpy(), f)
@@ -204,6 +227,8 @@ def test_obj_round_trip(tmp_path):
     jobj.save_obj(str(jp), jbare)
     assert tp.read_text() == jp.read_text()
     _mesh_equal(obj.load_obj(str(tp), device=DEVICE),
+                jobj.load_obj(str(jp)))
+    _mesh_equal(obj._load_obj_py(str(tp), device=DEVICE),
                 jobj._load_obj_py(str(jp)))
 
 

@@ -159,7 +159,7 @@ def test_obj_native_matches_python(tmp_path, text):
     with open(p, "w") as f:
         f.write(text)
     v, n, fc, uv, lo, hi = native.load_obj_arrays(p)
-    m = obj.load_obj(p, device=DEVICE)
+    m = obj._load_obj_py(p, device=DEVICE)
     np.testing.assert_array_equal(v, m.vertices.numpy())
     np.testing.assert_allclose(n, m.normals.numpy(), atol=1e-6)
     np.testing.assert_array_equal(fc, m.faces.numpy())

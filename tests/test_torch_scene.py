@@ -5,13 +5,13 @@ Renderer method, and the map exported by --save-mesh after a small orbit.
 
 Tolerances: voxel grids of the meshes equal word for word; through the
 octree the occupied set and the centres equal and colours within one
-8-bit level (the leaf blend of svo.insert: XLA fuses its multiply-add, the
-port rounds each op, tests/torch_parity.xla_blend); rasterized images as in
+8-bit level; rasterized images as in
 test_torch_raster.py; the cone and splat views within 1e-4 on 99% of
 pixels; the exported OBJ the same text as the JAX package's save_obj of
 voxel_grid_to_mesh of the same extraction."""
 
 import json
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,7 +107,7 @@ def _grid_eq(t, j, exact_colors=True):
     assert float(t.scale) == float(j.scale)
 
 
-def test_textures_pair_with_meshes(assets):
+def test_textures_pair_with_meshes(assets, monkeypatch):
     js, ts = _scenes(assets)
     assert len(ts.textures) == len(js.textures) == 2
     for t, j in zip(ts.textures, js.textures):
@@ -120,7 +120,10 @@ def test_textures_pair_with_meshes(assets):
         s.load_obj_file(assets["b"])
         s.load_texture(assets["png"])
     assert ts2.textures[0] is None and js2.textures[0] is None
-    with pytest.raises(ValueError, match="'jpg'"):
+    # a format other than BMP and PNG is read through PIL; without PIL
+    # the error names the format
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ValueError, match="'jpg'.*PIL"):
         ts2.load_texture(assets["png"][:-3] + "jpg")
 
 

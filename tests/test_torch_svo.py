@@ -4,11 +4,10 @@ multi-frame stream of identical world points.
 
 Tolerances: child, value, n_nodes, overflowed, unique_overflow and
 last_key are bit-identical, and so are the eager insert's interior values,
-the tile topology and the refreshed interiors. A leaf value may differ by
-one level per channel only where the reference's XLA-compiled blend
-(reciprocal multiply + FMA, torch_parity.xla_blend) and the port's
-op-by-op blend round differently, which the lazy test checks row by
-row."""
+the tile topology and the refreshed interiors. Leaf values are too: the
+port blends as the reference's compiled insert does (packing.blend_mean;
+tests/test_torch_fuzz_map.py pins a leaf where the op-by-op blend lands
+one level apart)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,7 +16,7 @@ import torch
 
 from oracle import OracleOctree, morton_key
 from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
-from torch_parity import DEVICE, random_cloud, to_t, words, xla_blend
+from torch_parity import DEVICE, random_cloud, to_t, words
 
 from octree_slam_tpu.map import svo as jsvo
 from octree_slam_tpu_torch.core import packing
@@ -26,38 +25,6 @@ from octree_slam_tpu_torch.map import svo
 
 def _port_pool(jpool):
     return svo.SVONodePool(*(to_t(np.asarray(x)) for x in jpool))
-
-
-def _segment_sums(pts, cols, keys_of_rows, depth):
-    """Per-leaf colour sums and counts of the rows' keys (numpy)."""
-    from octree_slam_tpu.map import morton as jmorton
-    keys = np.asarray(jmorton.encode(jnp.asarray(pts), jnp.zeros(3), 1.0,
-                                     depth)[0])
-    c8 = np.clip(np.round(cols * 255.0), 0, 255).astype(np.int64)
-    order = np.argsort(keys, kind="stable")
-    uk, start, cnt = np.unique(keys[order], return_index=True,
-                               return_counts=True)
-    sums = np.add.reduceat(c8[order], start, axis=0)
-    pos = np.searchsorted(uk, keys_of_rows)
-    return sums[pos], cnt[pos]
-
-
-def _assert_values(jv, tv, old, jst, pts, cols, depth):
-    """Bit-identical words, except rows the XLA blend explains."""
-    diff = np.nonzero(jv != tv)[0]
-    if not diff.size:
-        return
-    tn = np.asarray(jst.touched_leaf_nodes)
-    tk = np.asarray(jst.touched_leaf_keys)
-    row_of = {int(n): i for i, n in enumerate(tn) if n >= 0}
-    assert all(int(d) in row_of for d in diff), "non-leaf value differs"
-    rows = np.array([row_of[int(d)] for d in diff])
-    sums, cnt = _segment_sums(pts, cols, tk[rows], depth)
-    np.testing.assert_array_equal(xla_blend(old[diff], sums, cnt), jv[diff])
-    for s in (0, 8, 16):
-        assert np.abs(((jv[diff] >> s) & 0xFF).astype(int)
-                      - ((tv[diff] >> s) & 0xFF).astype(int)).max() <= 1
-    np.testing.assert_array_equal(jv[diff] >> 24, tv[diff] >> 24)
 
 
 @pytest.mark.parametrize("unique_cap", [1 << 11, 1 << 14])
@@ -71,7 +38,6 @@ def test_insert_stream_bit_identical(unique_cap):
     paged = 0
     for fr in range(5):
         pts = pts0 + np.float32(0.02 * fr)
-        old = words(tpool.value).copy()
         jmin = tmin = None
         while True:
             jpool, jst = jsvo.insert(jpool, jnp.asarray(pts),
@@ -95,14 +61,12 @@ def test_insert_stream_bit_identical(unique_cap):
                 np.testing.assert_array_equal(
                     getattr(tst, name).numpy(),
                     np.asarray(getattr(jst, name)), err_msg=name)
-            _assert_values(np.asarray(jpool.value), words(tpool.value), old,
-                           jst, pts, cols, depth)
+            np.testing.assert_array_equal(words(tpool.value),
+                                          np.asarray(jpool.value))
             if not bool(jst.unique_overflow):
                 break
             paged += 1
             jmin, tmin = jst.last_key, tst.last_key
-            # later pages blend onto the port's own (equal) values
-            old = words(tpool.value).copy()
     assert (paged > 0) == (unique_cap < 6000)
 
 

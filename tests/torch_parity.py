@@ -132,34 +132,6 @@ def random_cloud(n, seed, lo=-0.9, hi=0.9):
     return pts, cols
 
 
-def _fma32(a, b, c):
-    """float32 fused multiply-add (exact product in float64, one final
-    rounding to float32)."""
-    return (a.astype(np.float64) * b.astype(np.float64)
-            + c.astype(np.float64)).astype(np.float32)
-
-
-def xla_blend(old_words: np.ndarray, seg_sum: np.ndarray,
-              seg_cnt: np.ndarray) -> np.ndarray:
-    """The leaf blend as XLA:CPU compiles the reference's insert: the
-    segment mean's `/ 255.0` becomes a multiply by the float32 reciprocal,
-    `new*255*f1` reassociates to `new*(f1*255)`, and the sum contracts into
-    one FMA. Returns uint32 words; explains every leaf where the port
-    (each op rounded as written) lands one level apart."""
-    f32 = np.float32
-    old = old_words.astype(np.uint32)
-    rgb = np.stack([(old >> s) & 0xFF for s in (0, 8, 16)], -1).astype(f32)
-    a = ((old >> 24) & 0xFF).astype(np.int32)
-    mean = (seg_sum.astype(f32) / np.maximum(seg_cnt.astype(f32), f32(1))
-            [:, None]).astype(f32) * (f32(1) / f32(255))
-    f2 = (a.astype(f32) / f32(256))[:, None]
-    f1 = f32(1) - f2
-    out = _fma32(mean, (f1 * f32(255)).astype(f32), (rgb * f2).astype(f32))
-    out = np.clip(out.astype(np.int32), 0, 255).astype(np.uint32)
-    na = np.minimum(a + 2, 255).astype(np.uint32)
-    return out[:, 0] | (out[:, 1] << 8) | (out[:, 2] << 16) | (na << 24)
-
-
 def orbit_frames(cfg, n, step_angle=0.015, radius=2.0):
     """The reference package's synthetic orbit stream as numpy:
     (depth u16 [n,H,W], color u8 [n,H,W,3], gt poses f32 [n,4,4])."""
