@@ -17,6 +17,11 @@ Beyond that vector the loop reads only what the reference package reads:
 `state.diverged` on frames that diverged, and the capacity and extraction
 reads of growth and tiering. `pipeline.step` adds its own pager read.
 
+Spans (utils/spans.py): each loop iteration is an `app.frame` span, and
+each `consume` an `app.consume` span charged to the frame whose vector it
+reads, with `sync.slot` (the event wait), `app.reloc`, `app.grow` and
+`app.tier` inside it.
+
 The reference package's compile-ahead of the grown step
 (`precompile_step`, `_aot_cache`, `_donated_step`) and its runtime set-up
 exist for its TPU and compile tunnel only; eager PyTorch compiles nothing,
@@ -48,7 +53,7 @@ import torch
 from octree_slam_tpu_torch import convert, pipeline
 from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import Frame
-from octree_slam_tpu_torch.utils import metrics
+from octree_slam_tpu_torch.utils import metrics, spans
 
 # _pack_signals' layout; consume() reads by these offsets
 _SIG_POSE = slice(0, 16)
@@ -100,9 +105,10 @@ class SignalSlots:
         return k
 
     def read(self, k: int) -> np.ndarray:
-        if self.cuda:
-            self.events[k].synchronize()
-        return self.bufs[k].numpy().copy()
+        with spans.span("sync.slot"):
+            if self.cuda:
+                self.events[k].synchronize()
+            return self.bufs[k].numpy().copy()
 
 
 @dataclass
@@ -208,6 +214,11 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
     result = RunResult()
 
     def consume(item, state, cfg):
+        """`handle` in the `app.consume` span of the frame it reads."""
+        with spans.span("app.consume", frame=item[0]):
+            return handle(item, state, cfg)
+
+    def handle(item, state, cfg):
         """Host handling of one stepped frame: read its vector, page the
         remainder (device_remainder off), record poses, save the render,
         recover a lost camera, grow and tier. Returns (state, cfg)."""
@@ -223,7 +234,8 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
             while more:
                 state, (uo, last_key) = pipeline.insert_remainder(
                     state, frame, cfg, last_key)
-                more = bool(uo)
+                with spans.span("sync.pager"):
+                    more = bool(uo)
         result.poses.append(pose_np)
         if gt_fn is not None:
             gt = gt_fn(j)
@@ -234,8 +246,9 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
             # recovered by an earlier consume (the lag), so read its flag
             if cfg.recovery_enabled and bool(state.diverged):
                 from octree_slam_tpu_torch import relocalize as reloc
-                pose_new, ok, diag = reloc.relocalize(
-                    state, cfg, keyposes or [pose_np])
+                with spans.span("app.reloc"):
+                    pose_new, ok, diag = reloc.relocalize(
+                        state, cfg, keyposes or [pose_np])
                 if ok:
                     pose_t = torch.from_numpy(
                         np.asarray(pose_new, np.float32)).to(dev)
@@ -274,8 +287,9 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
             }), flush=True)
         if archive is not None and len(archive):
             from octree_slam_tpu_torch.map import tiering
-            state, cfg, n_rest = tiering.restore_due(
-                state, cfg, archive, camera_pos=pose_np[:3, 3])
+            with spans.span("app.tier"):
+                state, cfg, n_rest = tiering.restore_due(
+                    state, cfg, archive, camera_pos=pose_np[:3, 3])
             if n_rest:
                 result.restored_leaves += n_rest
                 print(json.dumps({
@@ -289,8 +303,9 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
             if grow_nodes and archive is not None:
                 # archive cold regions before growing the device's share
                 from octree_slam_tpu_torch.map import tiering
-                state, cfg, n_spill = tiering.spill_cold(
-                    state, cfg, archive, camera_pos=pose_np[:3, 3])
+                with spans.span("app.tier"):
+                    state, cfg, n_spill = tiering.spill_cold(
+                        state, cfg, archive, camera_pos=pose_np[:3, 3])
                 if n_spill:
                     result.spilled_leaves += n_spill
                     n_nodes, n_leaves = torch.stack(
@@ -302,9 +317,10 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
                         "leaves": n_spill, "archived_cells": len(archive),
                         "map_nodes": n_nodes}), flush=True)
             if grow_nodes or grow_leaves:
-                state, cfg = pipeline.grow_state(
-                    state, cfg, grow_nodes=grow_nodes,
-                    grow_leaves=grow_leaves)
+                with spans.span("app.grow"):
+                    state, cfg = pipeline.grow_state(
+                        state, cfg, grow_nodes=grow_nodes,
+                        grow_leaves=grow_leaves)
                 ovf_ignore_until[0] = j + lag
                 # the next loop iteration's frame is the first on the grown
                 # map: growth_frame_s reports it
@@ -331,25 +347,26 @@ def run_slam(frame_fn: Callable[[int], Frame], n_frames: int,
         if stop_fn is not None and stop_fn(i):
             n_run = i
             break
-        frame = frame_fn(i)
-        render = (render_mode if render_every > 0 and i % render_every == 0
-                  else "none")
-        check = (cfg.insert_dircache and cfg.debug_validate_dircache > 0
-                 and i > 0 and i % cfg.debug_validate_dircache == 0)
-        if check:
-            # the step writes the map in place: snapshot it first
-            pre_state = convert.clone_state(state)
-        state, out = pipeline.step(state, frame, cfg, render=render)
-        if check:
-            _validate_dircache(pre_state, state, frame, cfg, i)
-            del pre_state
-        slot = slots.put(i, _pack_signals(out))
-        # a saved render is copied: no later step may write its memory
-        fb = (out.framebuffer.clone() if save_dir and render != "none"
-              else None)
-        queue.append((i, slot, fb, frame, out.last_insert_key))
-        while len(queue) > lag:
-            state, cfg = consume(queue.pop(0), state, cfg)
+        with spans.frame(i):
+            frame = frame_fn(i)
+            render = (render_mode if render_every > 0 and i % render_every == 0
+                      else "none")
+            check = (cfg.insert_dircache and cfg.debug_validate_dircache > 0
+                     and i > 0 and i % cfg.debug_validate_dircache == 0)
+            if check:
+                # the step writes the map in place: snapshot it first
+                pre_state = convert.clone_state(state)
+            state, out = pipeline.step(state, frame, cfg, render=render)
+            if check:
+                _validate_dircache(pre_state, state, frame, cfg, i)
+                del pre_state
+            slot = slots.put(i, _pack_signals(out))
+            # a saved render is copied: no later step may write its memory
+            fb = (out.framebuffer.clone() if save_dir and render != "none"
+                  else None)
+            queue.append((i, slot, fb, frame, out.last_insert_key))
+            while len(queue) > lag:
+                state, cfg = consume(queue.pop(0), state, cfg)
         t_now = time.perf_counter()
         frame_s.append(t_now - t_prev)
         t_prev = t_now

@@ -28,6 +28,7 @@ from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core import se3
 from octree_slam_tpu_torch.core.types import PyramidLevel
 from octree_slam_tpu_torch.sensor import image_ops
+from octree_slam_tpu_torch.utils import spans
 
 
 class TrackStats(NamedTuple):
@@ -279,7 +280,8 @@ def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
     its rows a multiple of 2^(pyramid_depth-1) apart. Each Gauss-Newton
     iteration adds the slabs' normal-equation sums with `psum` (a list of
     per-slab tensors -> the sum on each slab's device) and solves once on
-    the first slab's device (one slab needs no psum: that is `track`)."""
+    the first slab's device (one slab needs no psum: that is `track`).
+    Each level runs in a `track.level<L>` span (utils/spans.py)."""
     dev = slabs[0][1][0].intensity.device
     update_T = (torch.eye(4, dtype=torch.float32, device=dev)
                 if init_T is None else init_T.to(dev, torch.float32))
@@ -291,10 +293,11 @@ def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
             f"pyramid_iters needs {cfg.pyramid_depth - tfl} entries for "
             f"pyramid_depth={cfg.pyramid_depth}, track_finest_level={tfl}")
     for level in range(cfg.pyramid_depth - 1, tfl - 1, -1):
-        update_T, div, count, res = _track_level(
-            last_pyramid[level], [(r0 >> level, pyr[level])
-                                  for r0, pyr in slabs],
-            update_T, cfg.pyramid_iters[level - tfl], cfg, psum)
+        with spans.span(f"track.level{level}"):
+            update_T, div, count, res = _track_level(
+                last_pyramid[level], [(r0 >> level, pyr[level])
+                                      for r0, pyr in slabs],
+                update_T, cfg.pyramid_iters[level - tfl], cfg, psum)
         diverged = diverged | div
         inliers.append(count)
         residuals.append(res)

@@ -8,18 +8,14 @@ stream, the startTiming/stopTiming pattern of the reference
 one event pair per call, so its reading includes the host's launch cost
 whenever the host enqueues more slowly than the device runs; `device_ms`
 times the calls replayed from a CUDA graph, without the host. All need a
-CUDA device: a measurement never falls back to the host clock.
-
-`StageStats` accumulates wall times of named host stages for structured
-logs (the reference package's registry); where it is given tensors it
-waits for their CUDA devices before it stops the clock.
+CUDA device: a measurement never falls back to the host clock. The host
+time of the program's stages is utils/spans.py's, which waits for nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import statistics
-import time
 from collections import defaultdict
 from typing import Callable, Dict, List
 
@@ -84,53 +80,3 @@ def device_ms(fn: Callable[[], object], runs: int = 50,
     with timer.time("replay"):
         graph.replay()
     return timer.ms("replay")[0] / runs
-
-
-def _synchronize(*tensors) -> None:
-    """Wait for every CUDA device that holds one of `tensors` (nested
-    tuples, lists and dicts too); tensors on the CPU are ready already."""
-    devices = set()
-
-    def visit(x):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            for v in x.values():
-                visit(v)
-        elif isinstance(x, (tuple, list)):
-            for v in x:
-                visit(v)
-    for t in tensors:
-        visit(t)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-class StageStats:
-    """Per-stage wall-clock totals and counts (counterpart:
-    octree_slam_tpu/utils/timing.py's StageStats). `time(name, *block_on)`
-    times its block and, before it stops the clock, waits for the CUDA
-    devices that hold `block_on` (read when the block ends), so that the
-    work the block enqueued is counted."""
-
-    def __init__(self):
-        self.total: Dict[str, float] = defaultdict(float)
-        self.count: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str, *block_on):
-        t0 = time.perf_counter()
-        yield
-        if block_on:
-            _synchronize(*block_on)
-        dt = time.perf_counter() - t0
-        self.total[name] += dt
-        self.count[name] += 1
-
-    def mean_ms(self, name: str) -> float:
-        c = self.count[name]
-        return 1000.0 * self.total[name] / c if c else 0.0
-
-    def report(self) -> Dict[str, float]:
-        return {k: round(self.mean_ms(k), 3) for k in sorted(self.total)}

@@ -71,29 +71,31 @@ def test_ate_rmse_matches(align):
 
 
 def test_default_config_and_stage_stats():
-    """config.DEFAULT_CONFIG is SLAMConfig() in both packages; StageStats
-    keeps the reference's totals, counts and report, and waits for no
-    device when the tensors it blocks on lie on the CPU."""
+    """config.DEFAULT_CONFIG is SLAMConfig() in both packages; the port's
+    span report keeps what the reference's StageStats reports: per stage,
+    by sorted name, the count and the mean milliseconds (each span inside
+    a StageStats block of the same name, so never above it)."""
     import time
-
-    import torch
 
     from octree_slam_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
     from octree_slam_tpu.utils.timing import StageStats as JaxStageStats
     from octree_slam_tpu_torch.config import DEFAULT_CONFIG
-    from octree_slam_tpu_torch.utils.timing import StageStats
+    from octree_slam_tpu_torch.utils import spans
     assert DEFAULT_CONFIG == SLAMConfig() == port_config(JAX_DEFAULT)
-    stats, ref = StageStats(), JaxStageStats()
-    x = torch.zeros(3)
-    for s in (stats, ref):
+    ref = JaxStageStats()
+    spans.start()
+    with spans.frame(0):
         for _ in range(2):
-            with s.time("fuse"):
+            with ref.time("fuse"), spans.span("fuse"):
                 time.sleep(0.002)
-        with s.time("track"):
-            pass
-    with stats.time("track", x, (x, {"y": [x]})):
-        pass
-    assert list(stats.report()) == list(ref.report()) == ["fuse", "track"]
-    assert stats.count == {"fuse": 2, "track": 2}
-    assert stats.mean_ms("fuse") >= 2.0 and ref.mean_ms("fuse") >= 2.0
-    assert stats.mean_ms("render") == 0.0 == ref.mean_ms("render")
+        for _ in range(2):
+            with ref.time("track"), spans.span("track"):
+                pass
+    report = spans.stop().report()
+    assert list(report) == ["app.frame"] + list(ref.report()) == [
+        "app.frame", "fuse", "track"]
+    assert {k: report[k]["count"] for k in ("fuse", "track")} == ref.count
+    for k in ("fuse", "track"):
+        assert report[k]["mean_ms"] <= ref.mean_ms(k)
+    assert report["fuse"]["mean_ms"] >= 2.0
+    assert "render" not in report and ref.mean_ms("render") == 0.0

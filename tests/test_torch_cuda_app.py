@@ -2,7 +2,7 @@
 stream through run_slam that grows, spills and restores; the batched
 recovery pyramid of four candidates; a recovery through run_slam with its
 launch counts; a checkpoint written on the card and read on the CPU;
-utils.timing.StageStats waiting for the card.
+the insert's span counters against a pass-by-pass read.
 Marked `cuda`: without a CUDA device every test skips. The repository's
 conftest imports jax, which the card's machine lacks, so run these there
 with
@@ -190,17 +190,69 @@ def test_checkpoint_from_card_loads_on_cpu(device, tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_stage_stats_waits_for_the_card(device):
-    """StageStats.time waits for the card that holds what it blocks on (a
-    dict the block fills): the stream is idle when the block's time is
-    taken, and the time covers the enqueued work."""
-    from octree_slam_tpu_torch.utils import timing
-    stats = timing.StageStats()
-    x = torch.randn(4096, 4096, device=device)
-    out = {}
-    with stats.time("matmul", out):
-        out["y"] = x
-        for _ in range(20):
-            out["y"] = out["y"] @ x / 64.0
-    assert torch.cuda.current_stream(device).query()
-    assert stats.count["matmul"] == 1 and stats.mean_ms("matmul") > 0.0
+def test_span_counters_match_a_frame_by_frame_read(device, monkeypatch):
+    """The insert's device counters on the card, read once at stop(),
+    equal a control that reads each pass's n_unique and new_leaf_count as
+    the pass ends; and over the same run without the control the recorder
+    adds no read of the card (item, tolist, Event.synchronize) until
+    stop(), which reads once."""
+    from octree_slam_tpu_torch.utils import spans
+    cfg = dataclasses.replace(TIER, host_spill=False, node_capacity=1 << 16,
+                              leaf_capacity=1 << 14, insert_unique_cap=512)
+    frames, gts = _stream(cfg, 6)
+    moved = [type(f)(*(x.to(device) for x in f)) for f in frames]
+    reads = {"item": 0, "tolist": 0, "synchronize": 0}
+
+    def counting(cls, name):
+        real = getattr(cls, name)
+
+        def wrapper(*a, **k):
+            reads[name] += 1
+            return real(*a, **k)
+        monkeypatch.setattr(cls, name, wrapper)
+
+    def run(on: bool):
+        for k in reads:
+            reads[k] = 0
+
+        def frame_fn(i):
+            if on and i == 1:
+                spans.start()
+            return moved[i]
+        app.run_slam(frame_fn, len(moved), cfg, initial_pose=gts[0],
+                     render_every=0, device=device)
+        before = dict(reads)
+        return before, spans.stop(), dict(reads)
+
+    counting(torch.Tensor, "item")
+    counting(torch.Tensor, "tolist")
+    counting(torch.cuda.Event, "synchronize")
+    off, _, _ = run(False)
+    on, rec, after = run(True)
+    assert on == off and off["synchronize"] == len(moved)
+    assert after == dict(on, tolist=on["tolist"] + 1)
+
+    # the control: every pass's counts read back as it ends, by step
+    control = []
+    fuse_once, step = pipeline._fuse_once, pipeline.step
+
+    def read_pass(*a, **k):
+        out = fuse_once(*a, **k)
+        st = out[4]
+        control[-1].append((int(st.n_unique), int(st.new_leaf_count)))
+        return out
+
+    def new_frame(*a, **k):
+        control.append([])
+        return step(*a, **k)
+    monkeypatch.setattr(pipeline, "_fuse_once", read_pass)
+    monkeypatch.setattr(pipeline, "step", new_frame)
+    _, rec2, _ = run(True)
+    assert rec2.frames == rec.frames == [2, 3, 4, 5]
+    for i in rec.frames:
+        want = control[i]
+        for r in (rec, rec2):
+            assert r.counters[i]["insert_passes"] == len(want)
+            assert r.counters[i]["unique_leaves"] == sum(u for u, _ in want)
+            assert r.counters[i]["new_leaves"] == sum(n for _, n in want)
+    assert max(len(control[i]) for i in rec.frames) >= 2
