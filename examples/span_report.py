@@ -1,6 +1,7 @@
 """The program's spans and counters on a cell of slambench: what each layer
 of the port costs at the speed it runs, the insert's passes and leaves per
-frame, the host's waits on the card, and what the recorder costs.
+frame, ICP's CUDA graph at work (its captures, replays and eager calls),
+the host's waits on the card, and what the recorder costs.
 
     PYTHONPATH=. python examples/span_report.py \
         --workload kinect1cm_splat.orbit --seconds 51 \
@@ -24,6 +25,11 @@ seed, in one process:
   `app.frame` span against the median frames, by span and by counter.
 - `per_span_ns`: the recorder's own cost per span, on and off.
 
+Each run starts with ICP's graph cache empty, as a process of the benchmark
+does, and reports `track_calls`: the run's captures, replays and eager
+calls of tracking.track_slabs (sensor/tracking.py `CALLS`), beside the
+frames it stepped.
+
 Each run prints one JSON line; --out gets them as <out>/<seed>.json."""
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from octree_slam_tpu_torch.sensor import tracking  # noqa: E402
 from octree_slam_tpu_torch.utils import spans  # noqa: E402
 from slambench import harness  # noqa: E402
 from slambench import stream as stream_mod  # noqa: E402
@@ -49,6 +56,7 @@ SPANS_FROM = 0.1       # share of the window at which the spans start
 STAGES = ("step.pyramid", "step.track", "step.heal", "step.fuse",
           "step.render", "app.consume")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACK_COUNTERS = tuple(tracking.CALLS)
 
 
 class SpanLoop(harness._Loop):
@@ -108,7 +116,8 @@ def span_metrics(rec: spans.Record, frames) -> dict:
                       if i in frames})
     out = {"frames": len(frames)}
     for name in STAGES + ("app.frame", "fuse.pass", "sync.pager",
-                          "sync.heal", "sync.slot", "app.grow"):
+                          "sync.heal", "sync.slot", "app.grow",
+                          "track.graph"):
         out[name] = mean_ms(name)
     levels = sorted({s.name for s in rec.spans
                      if s.name.startswith("track.level")})
@@ -122,6 +131,8 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     out["insert_passes_per_frame"] = mean_count("insert_passes")
     out["unique_leaves_per_frame"] = mean_count("unique_leaves")
     out["new_leaves_per_frame"] = mean_count("new_leaves")
+    for name in TRACK_COUNTERS:
+        out[f"{name}_per_frame"] = mean_count(name)
     out["stages_ms"] = sum(out[n] or 0.0 for n in STAGES)
     return out
 
@@ -177,6 +188,12 @@ def idle_outside_step(trace: dict, rec: spans.Record) -> dict:
             "mapped_offset_median_us": shift}
 
 
+def _fresh_track_graphs() -> None:
+    """ICP's graph cache and call counts as a new process has them."""
+    tracking._GRAPHS.clear()
+    tracking.reset_calls()
+
+
 def traced(cell, seed, seconds, dev, log) -> dict:
     """The cell's traced run with the spans on (see the docstring)."""
     box = {}
@@ -191,6 +208,7 @@ def traced(cell, seed, seconds, dev, log) -> dict:
         return box["loop"]
     real_loop = harness._Loop
     harness._Loop, trace_mod.summarize = loop, keep
+    _fresh_track_graphs()
     try:
         result = harness.run_cell(cell, seed, seconds, True, device=dev,
                                   log=log)
@@ -205,6 +223,9 @@ def traced(cell, seed, seconds, dev, log) -> dict:
            "result_metrics": {k: v["value"] for k, v in
                               result["metrics"].items()},
            "device": result["device"], "checks": result["checks"],
+           "frames_stepped": (result["attempted"]
+                              + int(cell.traffic["warmup_frames"])),
+           "track_calls": dict(tracking.CALLS),
            "spans_first_frame": rec.frames[0] if rec.frames else None,
            "profiler_first_frame": lp.prof_first,
            **span_metrics(rec, before),
@@ -225,6 +246,7 @@ def window(cell, seed, seconds, dev, spans_on: bool) -> dict:
     loop = SpanLoop(stream, stream.poses.cpu().numpy(),
                     int(cell.traffic["warmup_frames"]), seconds, None, False,
                     spans_on=spans_on)
+    _fresh_track_graphs()
     res = app.run_slam(loop.frame_fn, harness.BIG, cfg,
                        initial_pose=stream.poses[0], gt_fn=loop.gt_fn,
                        render_every=int(cell.traffic.get("render_every", 1)),
@@ -237,7 +259,8 @@ def window(cell, seed, seconds, dev, spans_on: bool) -> dict:
            "fps": harness.fps(res.frames - loop.warmup,
                               loop.t_stop - loop.t_window),
            "median_period_ms": 1e3 * float(np.median(per)),
-           "frame_ms_p95": harness.p95_ms(per)}
+           "frame_ms_p95": harness.p95_ms(per),
+           "frames_stepped": res.frames, "track_calls": dict(tracking.CALLS)}
     del res, stream, loop
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

@@ -16,11 +16,20 @@ Gauss-Newton loop reads nothing back to the host.
 With cfg.w_rgbd > 0 every iteration adds the photometric term
 (`rgbd_normal_equations`); `track(..., init_T=)` seeds the iterations for
 keyframe anchoring.
+
+On a CUDA device the whole coarse-to-fine solve of one frame is one CUDA
+graph (`_track_graph`): the eager loop captured once per key (the shapes,
+the device and the configuration fields the loop reads) and replayed on
+every later call, so the ~2,500 small kernels of 19 iterations cost one
+launch. Shapes and iteration counts are fixed by the configuration and
+nothing in the loop reads the host, so the replay runs the eager loop's
+kernels on the same data and gives its bits. `CALLS` counts the calls by
+path.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -216,8 +225,13 @@ def solve_normal_equations(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(info > 0, torch.nan, x)
 
 
+def _identity(xs):
+    """The psum of one slab: its own sums."""
+    return xs
+
+
 def _track_level(last: PyramidLevel, cur, update_T, iters: int,
-                 cfg: SLAMConfig, psum=lambda xs: xs):
+                 cfg: SLAMConfig, psum=_identity):
     """`iters` Gauss-Newton iterations at one pyramid level. `cur` is the
     current frame's level, or its row slabs at this level as a list of
     (first row, PyramidLevel), each on its own device: each slab pairs
@@ -273,7 +287,7 @@ def track(last_pyramid: List[PyramidLevel],
 
 
 def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
-                init_T: torch.Tensor | None = None, *, psum=lambda xs: xs
+                init_T: torch.Tensor | None = None, *, psum=_identity
                 ) -> Tuple[torch.Tensor, TrackStats]:
     """`track` with the current frame given as row slabs: slabs is a list
     of (first row at level 0, slab pyramid), each slab on its own device,
@@ -281,7 +295,20 @@ def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
     iteration adds the slabs' normal-equation sums with `psum` (a list of
     per-slab tensors -> the sum on each slab's device) and solves once on
     the first slab's device (one slab needs no psum: that is `track`).
-    Each level runs in a `track.level<L>` span (utils/spans.py)."""
+    The whole frame as one slab on a CUDA device with no psum replays the
+    loop's CUDA graph (`_track_graph`, in a `track.graph` span); anything
+    else runs it eagerly, each level in a `track.level<L>` span
+    (utils/spans.py)."""
+    if _graph_eligible(slabs, psum):
+        return _track_graph(last_pyramid, slabs[0][1], cfg, init_T)
+    _tally("track_eager")
+    return _track_eager(last_pyramid, slabs, cfg, init_T, psum)
+
+
+def _track_eager(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
+                 init_T: torch.Tensor | None, psum
+                 ) -> Tuple[torch.Tensor, TrackStats]:
+    """track_slabs' Gauss-Newton loop, launch by launch."""
     dev = slabs[0][1][0].intensity.device
     update_T = (torch.eye(4, dtype=torch.float32, device=dev)
                 if init_T is None else init_T.to(dev, torch.float32))
@@ -308,3 +335,129 @@ def track_slabs(last_pyramid: List[PyramidLevel], slabs, cfg: SLAMConfig,
     return update_T, TrackStats(inliers=torch.stack(inliers),
                                 residual=torch.stack(residuals),
                                 diverged=diverged)
+
+
+# calls of track_slabs by path since the last reset_calls(); each also adds
+# to the frame's counter of the same name (utils/spans.py)
+CALLS = {"track_graph_captures": 0, "track_graph_replays": 0,
+         "track_eager": 0}
+
+# what the Gauss-Newton loop reads of the configuration: a graph captured
+# under one value of each is replayed only under the same values
+GRAPH_FIELDS = ("pyramid_depth", "pyramid_iters", "track_finest_level",
+                "icp_symmetric", "icp_huber_k", "icp_dist_thresh",
+                "icp_norm_thresh", "icp_z_min", "icp_z_max", "w_rgbd",
+                "focal_x", "focal_y", "width", "height")
+
+
+def reset_calls() -> None:
+    for k in CALLS:
+        CALLS[k] = 0
+
+
+def _tally(name: str) -> None:
+    CALLS[name] += 1
+    spans.count(name)
+
+
+def _graph_eligible(slabs, psum) -> bool:
+    """The whole frame as one slab on a CUDA device, with no psum."""
+    return (len(slabs) == 1 and slabs[0][0] == 0 and psum is _identity
+            and slabs[0][1][0].intensity.device.type == "cuda")
+
+
+def graph_key(last_pyramid: List[PyramidLevel],
+              current_pyramid: List[PyramidLevel], cfg: SLAMConfig):
+    """What a captured graph holds fixed: the device, every map's shape
+    and type (the 1x1 INF placeholders included) and GRAPH_FIELDS."""
+    maps = tuple((tuple(x.shape), x.dtype)
+                 for pyr in (last_pyramid, current_pyramid)
+                 for lvl in pyr for x in lvl)
+    return ((current_pyramid[0].intensity.device, len(last_pyramid), maps)
+            + tuple(getattr(cfg, f) for f in GRAPH_FIELDS))
+
+
+class _TrackGraph:
+    """One capture of `_track_eager` on static inputs: the last and the
+    current tracked levels' vertex and normal maps (and intensities when
+    cfg.w_rgbd > 0) and the seed T0. A call copies its maps in (device to
+    device, 18.5 MB at 640x480), replays, and clones the outputs, since the
+    caller keeps them past the next replay (the step's stats are read one
+    frame late)."""
+
+    def __init__(self, last_pyramid, current_pyramid, cfg: SLAMConfig,
+                 init_T: torch.Tensor | None):
+        dev = current_pyramid[0].intensity.device
+        used = ("vertex", "normal") + (("intensity",) if cfg.w_rgbd > 0.0
+                                       else ())
+        tracked = range(cfg.track_finest_level, cfg.pyramid_depth)
+        unused = torch.empty(0, device=dev)
+
+        def static(pyr):
+            return [PyramidLevel(*(
+                torch.empty(x.shape, dtype=x.dtype, device=dev)
+                if i in tracked and f in used else unused
+                for f, x in zip(PyramidLevel._fields, lvl)))
+                for i, lvl in enumerate(pyr)]
+        self.last, self.cur = static(last_pyramid), static(current_pyramid)
+        self.eye = torch.eye(4, dtype=torch.float32, device=dev)
+        self.T0 = torch.empty(4, 4, dtype=torch.float32, device=dev)
+        self.load(last_pyramid, current_pyramid, init_T)
+
+        def run():
+            return _track_eager(self.last, [(0, self.cur)], cfg, self.T0,
+                                _identity)
+        # PyTorch's recipe: one eager call on a side stream first (library
+        # handles, workspaces, lazily loaded kernels), then the capture;
+        # thread_local, so that another thread's copies (a prefetching
+        # reader) cannot break it
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.out = run()
+
+    def load(self, last_pyramid, current_pyramid, init_T) -> None:
+        for dst_pyr, src_pyr in ((self.last, last_pyramid),
+                                 (self.cur, current_pyramid)):
+            for dst, src in zip(dst_pyr, src_pyr):
+                for d, x in zip(dst, src):
+                    if d.numel():
+                        d.copy_(x)
+        self.T0.copy_(self.eye if init_T is None else init_T)
+
+    def replay(self) -> Tuple[torch.Tensor, TrackStats]:
+        self.graph.replay()
+        update_T, stats = self.out
+        return update_T.clone(), TrackStats(*(x.clone() for x in stats))
+
+
+# the captured graphs by graph_key, at most MAX_GRAPHS (the oldest goes
+# first: each holds its own memory pool, ~120 MB at 640x480)
+_GRAPHS: Dict[tuple, _TrackGraph] = {}
+MAX_GRAPHS = 8
+
+
+def _track_graph(last_pyramid, current_pyramid, cfg: SLAMConfig,
+                 init_T: torch.Tensor | None
+                 ) -> Tuple[torch.Tensor, TrackStats]:
+    """track on a CUDA device: the key's graph, captured on its first
+    call and replayed on every later one."""
+    key = graph_key(last_pyramid, current_pyramid, cfg)
+    with spans.span("track.graph"):
+        g = _GRAPHS.get(key)
+        if g is None:
+            while len(_GRAPHS) >= MAX_GRAPHS:
+                del _GRAPHS[next(iter(_GRAPHS))]
+            g = _GRAPHS[key] = _TrackGraph(last_pyramid, current_pyramid,
+                                           cfg, init_T)
+            _tally("track_graph_captures")
+        else:
+            g.load(last_pyramid, current_pyramid, init_T)
+            _tally("track_graph_replays")
+        return g.replay()

@@ -129,8 +129,12 @@ def test_nesting_parents_and_the_consume_lag(orbit):
             assert parent.name == "app.frame" and parent.frame == s.frame + 1
         elif s.name.startswith("step."):
             assert parent.name == "app.frame" and parent.frame == s.frame
-        elif s.name.startswith("track.level"):
+        elif s.name == "track.graph":
             assert parent.name == "step.track"
+        elif s.name.startswith("track.level"):
+            # eager levels; on a card, the capture's levels run inside
+            # track.graph
+            assert parent.name in ("step.track", "track.graph")
         elif s.name == "fuse.pass":
             assert parent.name == "step.fuse"
         elif s.name == "sync.slot":
@@ -144,8 +148,11 @@ def test_nesting_parents_and_the_consume_lag(orbit):
         assert names.count("app.frame") == names.count("app.consume") == 1
         for stage in ("pyramid", "track", "heal", "fuse", "render"):
             assert names.count(f"step.{stage}") == 1
+        # the CPU runs ICP's eager loop: its level spans, no graph
         assert {n for n in names if n.startswith("track.level")} == {
             "track.level0", "track.level1", "track.level2"}
+        assert "track.graph" not in names
+        assert rec.counters[i]["track_eager"] == 1
         assert names.count("sync.slot") == 1
     # consume(1) ran inside app.frame(2): recorded, but frame 1 is not whole
     assert [s.frame for s in rec.spans if s.name == "app.consume"] == [

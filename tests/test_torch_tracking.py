@@ -1,13 +1,20 @@
 """Port parity: pyramid and point-to-plane ICP against the JAX package.
 
+On the CPU every call takes the eager loop: the CUDA graph's eligibility
+rule and its cache key are held here, the graph itself on the card
+(tests/test_torch_cuda_track_graph.py).
+
 Tolerances: pyramid maps within 1e-6 with identical INF masks (depth and
 intensity levels bit-exact, see test_torch_image_ops for the filter's
 +-1 mm bound); the 19-iteration track pose within 1e-5 with equal inlier
 counts and an equal divergence flag (the 6x6 Gram sums 4800 products in
 another order, a few float32 ulps)."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from torch_parity import yield_cpu  # noqa: F401 (autouse fixture)
@@ -128,3 +135,92 @@ class TestTrack:
             np.testing.assert_allclose(tb.numpy(), np.asarray(jb),
                                        rtol=1e-5, atol=1e-6)
             np.testing.assert_allclose(float(tr), float(jr), rtol=1e-5)
+
+
+class _OnCard:
+    """Stands for a map on a CUDA device: the eligibility rule reads only
+    the device."""
+    device = torch.device("cuda", 0)
+
+
+def _card_pyramid():
+    return [PyramidLevel(_OnCard(), _OnCard(), _OnCard())
+            for _ in range(CFG.pyramid_depth)]
+
+
+class TestGraphRule:
+    @pytest.mark.parametrize("case", ["one_slab", "two_slabs", "offset_slab",
+                                      "psum", "cpu"])
+    def test_eligibility(self, case, monkeypatch):
+        """Only the whole frame as one slab on a CUDA device with the
+        default psum replays the graph; CPU tensors, several slabs and a
+        custom psum run the eager loop."""
+        card = _card_pyramid()
+        slabs, psum = {
+            "one_slab": ([(0, card)], tracking._identity),
+            "two_slabs": ([(0, card), (32, card)], tracking._identity),
+            "offset_slab": ([(32, card)], tracking._identity),
+            "psum": ([(0, card)], lambda xs: xs),
+            "cpu": (None, tracking._identity)}[case]
+        if slabs is not None:
+            assert tracking._graph_eligible(slabs, psum) is (
+                case == "one_slab")
+            return
+        # a real call on the CPU: the eager loop, counted, no graph
+        def no_graph(*a, **k):
+            raise AssertionError("the CPU took the graph")
+        monkeypatch.setattr(tracking, "_track_graph", no_graph)
+        tracking.reset_calls()
+        pa, pb = _pyramids(CFG, 0.0, 0.02)
+        T, st = tracking.track(_to_port(pa), _to_port(pb), TCFG)
+        assert tracking.CALLS == {"track_graph_captures": 0,
+                                  "track_graph_replays": 0,
+                                  "track_eager": 1}
+        assert not bool(st.diverged) and T.shape == (4, 4)
+
+    @pytest.mark.parametrize("change", ["shape", "icp", "schedule",
+                                        "photometric", "unread"])
+    def test_cache_key(self, change):
+        """The key differs when a map's shape, an icp_* field, the
+        schedule or w_rgbd and the camera differ, and is equal when only
+        fields the Gauss-Newton loop does not read differ."""
+        def pyramid(h, w):
+            # the key reads shapes, types and the device, not values
+            return [PyramidLevel(torch.zeros(h >> i, w >> i, 3),
+                                 torch.zeros(h >> i, w >> i, 3),
+                                 torch.zeros(h >> i, w >> i))
+                    for i in range(CFG.pyramid_depth)]
+        pa, pb = pyramid(60, 80), pyramid(60, 80)
+        key = tracking.graph_key(pa, pb, TCFG)
+        assert tracking.graph_key(pa, pb, TCFG) == key
+        if change == "shape":
+            small = pyramid(30, 40)
+            assert tracking.graph_key(pa, small, TCFG) != key
+            assert tracking.graph_key(small, pb, TCFG) != key
+            placeholder = list(pb)
+            placeholder[0] = PyramidLevel(torch.full((1, 1, 3), torch.inf),
+                                          torch.full((1, 1, 3), torch.inf),
+                                          pb[0].intensity)
+            assert tracking.graph_key(pa, placeholder, TCFG) != key
+            return
+
+        def other(v):
+            if isinstance(v, bool):
+                return not v
+            if isinstance(v, tuple):
+                return v[:-1] + (v[-1] + 1,)
+            return v + 1
+        fields = {
+            "icp": [f.name for f in dataclasses.fields(TCFG)
+                    if f.name.startswith("icp_")],
+            "schedule": ["pyramid_depth", "pyramid_iters",
+                         "track_finest_level"],
+            "photometric": ["w_rgbd", "focal_x", "focal_y", "width",
+                            "height"],
+            "unread": ["voxel_resolution", "max_depth", "track_keyframe",
+                       "bilateral_kernel_size", "insert_unique_cap",
+                       "fuse_level", "relocalize"]}[change]
+        for f in fields:
+            cfg = dataclasses.replace(TCFG, **{f: other(getattr(TCFG, f))})
+            assert (tracking.graph_key(pa, pb, cfg) == key) is (
+                change == "unread"), f
