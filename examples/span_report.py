@@ -1,7 +1,10 @@
 """The program's spans and counters on a cell of slambench: what each layer
 of the port costs at the speed it runs, the insert's passes and leaves per
 frame, ICP's CUDA graph at work (its captures, replays and eager calls),
-the host's waits on the card, and what the recorder costs.
+the hybrid's band (its stage `step.band`, the spans `band.select` /
+`band.march` / `band.merge`, its lanes, trips and live lane-trips) and the
+heal (mirror rebuilds, distance refreshes and stamps), the host's waits on
+the card, and what the recorder costs.
 
     PYTHONPATH=. python examples/span_report.py \
         --workload kinect1cm_splat.orbit --seconds 51 \
@@ -30,6 +33,11 @@ does, and reports `track_calls`: the run's captures, replays and eager
 calls of tracking.track_slabs (sensor/tracking.py `CALLS`), beside the
 frames it stepped.
 
+`hybrid_share` is the share of `app.frame` spent in `step.heal`,
+`step.render` and `step.band`. Where only some frames render a hybrid view
+(a traffic's `render_every` > 1), `hybrid_frames` repeats the means over
+the frames that do.
+
 Each run prints one JSON line; --out gets them as <out>/<seed>.json."""
 
 from __future__ import annotations
@@ -54,7 +62,10 @@ from slambench import trace as trace_mod  # noqa: E402
 
 SPANS_FROM = 0.1       # share of the window at which the spans start
 STAGES = ("step.pyramid", "step.track", "step.heal", "step.fuse",
-          "step.render", "app.consume")
+          "step.render", "step.band", "app.consume")
+BAND_SPANS = ("band.select", "band.march", "band.merge")
+BAND_COUNTERS = ("band_lanes", "band_trips", "band_live_lane_trips")
+HEAL_COUNTERS = ("mirror_rebuilds", "dist_refreshes", "dist_stamps")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACK_COUNTERS = tuple(tracking.CALLS)
 
@@ -117,7 +128,7 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     out = {"frames": len(frames)}
     for name in STAGES + ("app.frame", "fuse.pass", "sync.pager",
                           "sync.heal", "sync.slot", "app.grow",
-                          "track.graph"):
+                          "track.graph") + BAND_SPANS:
         out[name] = mean_ms(name)
     levels = sorted({s.name for s in rec.spans
                      if s.name.startswith("track.level")})
@@ -126,14 +137,34 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     out["track_span_ms"] = out["step.track"]
     out["fuse_span_ms"] = out["step.fuse"]
     out["render_span_ms"] = out["step.render"]
+    out["band_span_ms"] = out["step.band"]
     out["consume_span_ms"] = out["app.consume"]
     out["host_wait_ms"] = mean_ms("sync.")
     out["insert_passes_per_frame"] = mean_count("insert_passes")
     out["unique_leaves_per_frame"] = mean_count("unique_leaves")
     out["new_leaves_per_frame"] = mean_count("new_leaves")
-    for name in TRACK_COUNTERS:
+    for name in TRACK_COUNTERS + BAND_COUNTERS + HEAL_COUNTERS:
         out[f"{name}_per_frame"] = mean_count(name)
+    lanes, trips, live = (rec.counter(n) for n in BAND_COUNTERS)
+    lane_trips = sum(lanes[i] * trips[i] for i in frames)
+    out["band_live_share"] = (sum(live[i] for i in frames) / lane_trips
+                              if lane_trips else None)
     out["stages_ms"] = sum(out[n] or 0.0 for n in STAGES)
+    hybrid = sum(out[n] or 0.0 for n in ("step.heal", "step.render",
+                                         "step.band"))
+    out["hybrid_share"] = (hybrid / out["app.frame"] if out["app.frame"]
+                           else None)
+    return out
+
+
+def with_hybrid_frames(rec: spans.Record, frames) -> dict:
+    """span_metrics over `frames`, and over those of them that rendered a
+    hybrid view where that is some of them but not all."""
+    out = span_metrics(rec, frames)
+    banded = {s.frame for s in rec.spans if s.name == "step.band"}
+    some = [i for i in frames if i in banded]
+    if some and len(some) < len(frames):
+        out["hybrid_frames"] = span_metrics(rec, some)
     return out
 
 
@@ -228,7 +259,7 @@ def traced(cell, seed, seconds, dev, log) -> dict:
            "track_calls": dict(tracking.CALLS),
            "spans_first_frame": rec.frames[0] if rec.frames else None,
            "profiler_first_frame": lp.prof_first,
-           **span_metrics(rec, before),
+           **with_hybrid_frames(rec, before),
            **idle_outside_step(box["trace"], rec)}
     track_host = out["result_metrics"].get("track_host_ms")
     if track_host and out["track_span_ms"]:
@@ -275,8 +306,9 @@ def window(cell, seed, seconds, dev, spans_on: bool) -> dict:
     tail = [i for i, v in frame_ms.items() if v > p95]
     mid = [i for i, v in frame_ms.items() if lo <= v <= hi]
     out["frame_span_p95_ms"] = p95
-    out["tail"] = span_metrics(rec, tail)
-    out["median_frames"] = span_metrics(rec, mid)
+    out["tail"] = with_hybrid_frames(rec, tail)
+    out["median_frames"] = with_hybrid_frames(rec, mid)
+    out["all_frames"] = with_hybrid_frames(rec, list(frame_ms))
     grows = [(s.frame, (s.t1 - s.t0) * 1e-6) for s in rec.spans
              if s.name == "app.grow"]
     out["grow_frames_ms"] = grows
@@ -342,6 +374,11 @@ def main(argv=None) -> int:
                 runs.append(window(cell, seed, args.seconds, dev, on))
                 short = {k2: v for k2, v in runs[-1].items()
                          if k2 not in ("report", "tail", "median_frames")}
+                if "all_frames" in short:
+                    short["all_frames"] = {
+                        k2: v for k2, v in short["all_frames"].items()
+                        if k2 in ("frames", "app.frame", "hybrid_share",
+                                  "band_span_ms", "hybrid_frames")}
                 print(json.dumps(short), flush=True)
         (out_dir / f"{seed}.json").write_text(json.dumps(runs, indent=1))
     return 0

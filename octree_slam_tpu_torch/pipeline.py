@@ -39,15 +39,22 @@ last_insert_key, and the caller finishes the frame with
 `insert_remainder`).
 
 The step's stages are spans (utils/spans.py): "step.pyramid",
-"step.track" (a "track.level<L>" span a pyramid level), "step.heal",
-"step.fuse" (a "fuse.pass" span an insert pass, which counts the pass and
-its distinct and first-seen leaves) and "step.render"; the host reads
-below are "sync.heal" and "sync.pager" spans. Off, with no profiler
-running, a span is a flag check that returns one shared object: 0.24-0.62
-us on the H100 machine's host, under 10 us of a 60-90 ms frame at its
-13.4 spans a frame (the idle record_function ranges it replaces cost
-6.7-12.3 us each); with a profiler running it is a record_function range
-as before. Recording, a span costs 2.4-3.3 us there, about 38 us a frame
+"step.track" (a "track.level<L>" span a pyramid level), "step.heal"
+(counter `mirror_rebuilds`), "step.fuse" (a "fuse.pass" span an insert
+pass, which counts the pass and its distinct and first-seen leaves),
+"step.render" and, on a hybrid frame, "step.band": the band march and
+merge (render/hybrid.band_march_merge, its "band.*" spans) after
+"step.render"'s distance refresh, stamps and slab cone. "step.band" is a
+sibling of "step.render", not inside it, so that a profiler trace that
+credits a kernel to the latest-started "step.*" range still credits the
+slab cone's kernels to "step.render". `dist_refreshes` and `dist_stamps`
+count the step's mips.refresh_dist and mips.encode_free_dist calls. The
+host reads below are "sync.heal" and "sync.pager" spans. Off, with no
+profiler running, a span is a flag check that returns one shared object:
+0.24-0.62 us on the H100 machine's host, under 10 us of a 60-90 ms frame
+at its 13.4 spans a frame (the idle record_function ranges it replaces
+cost 6.7-12.3 us each); with a profiler running it is a record_function
+range as before. Recording, a span costs 2.4-3.3 us there, about 38 us a frame
 (0.05%).
 
 Host reads per frame. The reference's on-device `lax.while_loop` remainder
@@ -532,6 +539,7 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
                 accel = mips.rebuild_from_pool(
                     pool, max_depth=cfg.max_depth, dist_level=lvl,
                     max_skip=cfg.dist_max_skip)
+                spans.count("mirror_rebuilds")
 
     with spans.span("step.fuse"):
         if cfg.saturation_gate:
@@ -582,6 +590,7 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
             # geometry they inserted
             accel = mips.refresh_dist(accel, dist_level=lvl,
                                       max_skip=cfg.dist_max_skip)
+            spans.count("dist_refreshes")
 
     with spans.span("step.render"):
         if render == "cone":
@@ -596,22 +605,20 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
                 # frames that do not stamp, so they ride the same trigger
                 accel = mips.refresh_dist(accel, dist_level=lvl,
                                           max_skip=cfg.dist_max_skip)
+                spans.count("dist_refreshes")
             if cfg.cone_band_fused_dist and (
                     not needs_mirror or had_new or restamp):
                 # an eager hybrid frame recomputed `dist` in mips.update,
                 # so it stamps on every frame
                 accel = mips.encode_free_dist(accel, max_depth=cfg.max_depth,
                                               dist_level=lvl)
-            fb = hybrid.render_cone_hybrid(
-                leaves, accel, pool.center, pool.half_size, pose,
-                cfg.focal_x, cfg.focal_y, spec=_slab_spec(cfg),
-                depth=cfg.max_depth, dist_level=lvl, max_range=cfg.max_range,
-                start_dist=cfg.start_dist, band_cap=cfg.cone_band_cap,
-                band_iters=cfg.cone_band_iters, crawl=cfg.cone_band_crawl,
-                fused_dist=cfg.cone_band_fused_dist,
-                depth_prio=cfg.cone_band_depth_prio,
-                compact_after=cfg.cone_band_compact_after,
-                sel_decimate=cfg.cone_band_sel_decimate)
+                spans.count("dist_stamps")
+            # hybrid.render_cone_hybrid's first half; step.band below does
+            # the rest
+            fb, _, z_first = conesplat.render_cone_splat(
+                leaves, pool.center, pool.half_size, pose, cfg.focal_x,
+                cfg.focal_y, spec=_slab_spec(cfg), depth=cfg.max_depth,
+                want_aux=True)
         elif render == "cone_march" and cfg.use_dense_mips:
             s = max(1, cfg.cone_scale)
             if cfg.width % s or cfg.height % s:
@@ -640,6 +647,18 @@ def step(state: SLAMState, frame: Frame, cfg: SLAMConfig,
                               depth=cfg.max_depth, max_range=cfg.max_range)
         else:
             fb = torch.zeros((cfg.height, cfg.width, 4), device=dev)
+    if render == "cone_hybrid":
+        with spans.span("step.band"):
+            fb = hybrid.band_march_merge(
+                fb, z_first, accel, pool.center, pool.half_size, pose,
+                cfg.focal_x, cfg.focal_y, spec=_slab_spec(cfg),
+                depth=cfg.max_depth, dist_level=lvl, max_range=cfg.max_range,
+                start_dist=cfg.start_dist, band_cap=cfg.cone_band_cap,
+                band_iters=cfg.cone_band_iters, crawl=cfg.cone_band_crawl,
+                fused_dist=cfg.cone_band_fused_dist,
+                depth_prio=cfg.cone_band_depth_prio,
+                compact_after=cfg.cone_band_compact_after,
+                sel_decimate=cfg.cone_band_sel_decimate)
 
     new_state = SLAMState(
         pool=pool,

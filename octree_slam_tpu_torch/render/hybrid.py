@@ -65,6 +65,14 @@ as its SLAMConfig fields set them:
 The reference's authors measured each of them on their TPU and kept them
 off; chip_smoke.py's `[knobs]` phase reads each one's PSNR and render time
 on the card.
+
+`band_march_merge` is three spans (utils/spans.py): "band.select" (the
+priorities and the top-C selection), "band.march" (seeds, ray set-up and
+the trips) and "band.merge". It counts the lanes marched (`band_lanes`,
+C), the trips run (`band_trips`; the compacting march's device count) and,
+while the recorder is on, the lane-trips that still marched
+(`band_live_lane_trips`: the live lanes summed over the trips on the
+device, read at the recorder's stop()).
 """
 
 from __future__ import annotations
@@ -80,7 +88,7 @@ from octree_slam_tpu_torch.render.raycast import (EXIT_CHECK_EVERY,
                                                   _ray_box, _spread3,
                                                   make_rays)
 from octree_slam_tpu_torch.render.splat import LeafList
-from octree_slam_tpu_torch.utils import compaction
+from octree_slam_tpu_torch.utils import compaction, spans
 
 
 def render_cone_hybrid(leaves: LeafList, cache, center: torch.Tensor,
@@ -137,11 +145,34 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
     image and its z_first (conesplat's want_aux outputs). `fb` is not
     written; the result is a new image. The knobs are the reference's (see
     the module docstring)."""
-    W, H = spec.width, spec.height
-    n = W * H
-    dev = fb.device
+    n = spec.width * spec.height
     C = min(band_cap if band_cap > 0 else max(128, n // 4), n)
     C2 = max(128, C // 4)
+    spans.count("band_lanes", C)
+    with spans.span("band.select"):
+        sel = _select(fb, z_first, spec, C, grad_dilate, depth_prio,
+                      sel_decimate)
+    with spans.span("band.march"):
+        rgb, w, active, trips, packed_at, start = _march(
+            sel, z_first, cache, center, half_size, world_T_cam, fx, fy,
+            spec=spec, depth=depth, dist_level=dist_level,
+            max_range=max_range, start_dist=start_dist, band_iters=band_iters,
+            compact_after=compact_after, seed_halo=seed_halo, crawl=crawl,
+            fused_dist=fused_dist, C=C, C2=C2)
+    with spans.span("band.merge"):
+        out = _merge(fb, sel, rgb, w, active)
+    if debug_band:
+        return out, dict(sel=sel, use_march=~active | (w > 0.0),
+                         trips=int(trips), capped=active, seed_t=start, w=w,
+                         packed_at=packed_at)
+    return out
+
+
+def _select(fb, z_first, spec: SlabSpec, C: int, grad_dilate: int,
+            depth_prio: float, sel_decimate: bool) -> torch.Tensor:
+    """The band's C pixel indices, in raster order."""
+    W, H = spec.width, spec.height
+    dev = fb.device
 
     # --- band selection: the slab image's luminance gradient against the
     # left and upper neighbour (with depth_prio, maxed with the relative
@@ -186,6 +217,22 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
         prio = _pool_max(grad, grad_dilate)
         sel = torch.sort(torch.argsort(-prio.reshape(-1),
                                        stable=True)[:C]).values
+    return sel
+
+
+def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
+           spec: SlabSpec, depth: int, dist_level: int, max_range: float,
+           start_dist: float, band_iters: int, compact_after: int,
+           seed_halo: int, crawl: int, fused_dist: bool, C: int, C2: int):
+    """The seeded march of the band's lanes `sel`. Returns (rgb, w, active,
+    trips, packed_at, start): the lanes' accumulated colour and weight,
+    the lanes still active at the trip cap, the trips (an int, or the
+    compacting march's device count), the trip after which the lanes were
+    packed (0: not) and each lane's start."""
+    W, H = spec.width, spec.height
+    dev = z_first.device
+    count_live = spans.recording()
+    live = 0
 
     # --- seeds: one leaf before the nearest first-contributing slab
     # boundary of the pixel's neighbourhood (z_first is +inf where no slab
@@ -343,6 +390,8 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
         # `crawl` samples)
         body = crawl_trip if crawl > 1 else trip
         for _ in range(band_iters):
+            if count_live:
+                live = live + lanes[3].sum()
             lanes = body(*lanes)
         trips, packed_at = band_iters, 0
     else:
@@ -356,6 +405,8 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
         packed_at = 0
         for i in range(1, band_iters + 1):
             needed = needed + lanes[3].any().to(torch.int32)
+            if count_live:
+                live = live + lanes[3].sum()
             lanes = trip(*lanes)
             if i % EXIT_CHECK_EVERY or i == band_iters:
                 continue
@@ -376,7 +427,21 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
             lanes = tuple(x.index_copy_(0, sub, y)
                           for x, y in zip(full, lanes))
         trips = needed
+    if isinstance(trips, int):
+        spans.count("band_trips", trips)
+    else:
+        spans.count_device("band_trips", trips)
+    if count_live:
+        spans.count_device("band_live_lane_trips", live)
     _, rgb, w, active = lanes
+    return rgb, w, active, trips, packed_at, start
+
+
+def _merge(fb, sel, rgb, w, active) -> torch.Tensor:
+    """The band's marched colours written over the slab image (a new
+    image)."""
+    H, W = fb.shape[:2]
+    n = H * W
 
     # --- merge. Finished rays are the exact march. Rays still active at
     # the trip cap (grazers that crawl leaf by leaf through occupied dist
@@ -390,9 +455,4 @@ def band_march_merge(fb, z_first, cache, center: torch.Tensor, half_size,
     merged_rgb = torch.where(capped[:, None], blended, front01)
     merged_a = torch.where(capped, 1.0, torch.clamp(w, 0.0, 255.0) / 255.0)
     out[sel] = torch.cat([merged_rgb, merged_a[:, None]], dim=-1)
-    out = out.reshape(H, W, 4)
-    if debug_band:
-        return out, dict(sel=sel, use_march=~capped | (w > 0.0),
-                         trips=int(trips), capped=capped, seed_t=start, w=w,
-                         packed_at=packed_at)
-    return out
+    return out.reshape(H, W, 4)

@@ -10,7 +10,9 @@ handles frame j during iteration j + 1 and is charged to j, the frame
 whose vector it reads. `count(name, n)` adds to a host counter of the
 current frame; `count_device(name, t)` keeps a reference to a 0-d device
 tensor the program computes anyway (no launch, no host read), and
-`stop()` reads all of them in one transfer.
+`stop()` reads all of them in one transfer. One counter is not computed
+anyway: the hybrid band's live lane-trips, two small launches a trip,
+which the band adds only while `recording()`.
 
 Off by default, with no option or environment variable. Off, a span is one
 shared no-op object when no torch.profiler runs, and `record_function`
@@ -255,6 +257,13 @@ def count_device(name: str, t: torch.Tensor) -> None:
     """Add the 0-d device tensor t to the current frame's counter `name`,
     read at stop() (when on)."""
     _RECORDER.count_device(name, t)
+
+
+def recording() -> bool:
+    """The recorder is on: for a counter that costs device work to compute
+    (render/hybrid.py's live lane-trips), which is then done only while
+    recording."""
+    return _RECORDER.on
 
 
 def start() -> None:

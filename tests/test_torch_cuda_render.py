@@ -1,5 +1,7 @@
 """The cone renderers (the hybrid among them) and the step's optional
-features on the card against the port itself on the CPU.
+features on the card against the port itself on the CPU; the step's
+hybrid frame (slab cone in step.render, band in step.band) against
+hybrid.render_cone_hybrid on the card, word for word.
 Marked `cuda`: without a CUDA device every test skips. The repository's
 conftest imports jax, which the card's machine lacks, so run these there
 with
@@ -169,3 +171,33 @@ def test_clone_state_on_the_card(device):
     pipeline.step(twin, f, CFG, render="cone_march")
     assert bool(state.interior_stale)
     assert int(state.accel.occ.sum()) == 0       # the original is untouched
+
+
+@pytest.mark.parametrize("renders,unique_cap", [
+    (["cone_hybrid"] * 3, 1 << 14),
+    (["cone_hybrid", "none", "cone_hybrid"], 1 << 14),
+    (["cone_hybrid"] * 2, 1 << 10),
+])
+def test_band_stage_bit_identical_on_the_card(device, renders, unique_cap):
+    """The step's hybrid frame, its slab cone in step.render and its band
+    in step.band, equals hybrid.render_cone_hybrid on the state it left,
+    word for word: after lazy frames, after a "none" frame and on a frame
+    whose insert pages."""
+    from octree_slam_tpu_torch.render import hybrid
+    cfg = dataclasses.replace(CFG, insert_unique_cap=unique_cap,
+                              cone_band_cap=3600, cone_band_iters=24)
+    frames, gts = _stream(cfg, len(renders))
+    state, out = _run(cfg, frames, gts, renders, device)
+    want = hybrid.render_cone_hybrid(
+        state.leaves, state.accel, state.pool.center, state.pool.half_size,
+        state.pose, cfg.focal_x, cfg.focal_y, spec=pipeline._slab_spec(cfg),
+        depth=cfg.max_depth, dist_level=pipeline._accel_level(cfg),
+        max_range=cfg.max_range, start_dist=cfg.start_dist,
+        band_cap=cfg.cone_band_cap, band_iters=cfg.cone_band_iters,
+        crawl=cfg.cone_band_crawl, fused_dist=cfg.cone_band_fused_dist,
+        depth_prio=cfg.cone_band_depth_prio,
+        compact_after=cfg.cone_band_compact_after,
+        sel_decimate=cfg.cone_band_sel_decimate)
+    assert out.framebuffer.device.type == "cuda"
+    assert torch.equal(out.framebuffer, want)
+    assert float(want[..., 3].max()) > 0.0

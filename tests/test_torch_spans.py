@@ -137,6 +137,8 @@ def test_nesting_parents_and_the_consume_lag(orbit):
             assert parent.name in ("step.track", "track.graph")
         elif s.name == "fuse.pass":
             assert parent.name == "step.fuse"
+        elif s.name.startswith("band."):
+            assert parent.name == "step.band"
         elif s.name == "sync.slot":
             assert parent.name == "app.consume"
         elif s.name == "sync.pager":
@@ -148,6 +150,8 @@ def test_nesting_parents_and_the_consume_lag(orbit):
         assert names.count("app.frame") == names.count("app.consume") == 1
         for stage in ("pyramid", "track", "heal", "fuse", "render"):
             assert names.count(f"step.{stage}") == 1
+        # the hybrid's band stage: hybrid frames only
+        assert names.count("step.band") == 0
         # the CPU runs ICP's eager loop: its level spans, no graph
         assert {n for n in names if n.startswith("track.level")} == {
             "track.level0", "track.level1", "track.level2"}
