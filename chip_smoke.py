@@ -40,7 +40,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      most 3 host reads a frame; afterwards the mirror it kept must equal,
      word for word, one rebuilt from the pool and stamped; the band's size,
      the share of its rays still active at the trip cap and the peak
-     device memory are printed;
+     device memory are printed; the band's trips run as the kernel
+     band_march, one launch a frame; on the last frame the kernel's
+     outputs and live lane-trips must equal the eager loop's word for
+     word, and its row gives both paths' per-call and device ms, its byte
+     bound (each gather one 32-byte sector, over 3.35 TB/s) and launches;
   9. the step features at full width: the splat orbit with the insert's
      directory cache on must end with the splat orbit's leaf registry,
      node count and ATE; the orbit with the keyframe anchor and the
@@ -195,6 +199,10 @@ WINDOW_CASES = [((480, 640), 5), ((480, 640), 3), ((480, 640), 9),
 # the row-sharded pyramid's window in [knobs]: the widest case
 WINDOW_HALO_SIZE = 11
 SOURCE = "octree_slam_tpu_torch/csrc/sensor_stencils.cu"
+# the hybrid's band march: no Pallas kernel, the reference's device loop
+BAND_SOURCE = "octree_slam_tpu_torch/csrc/band_march.cu"
+BAND_REPLACES = ("none: the lax.while_loop of "
+                 "octree_slam_tpu/render/hybrid.py:420")
 # the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -464,12 +472,14 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
     CUDA-event times of the frames after the warm-up, and the last frame's
     count of synchronising host reads."""
     from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.render import band_ops
     from octree_slam_tpu_torch.sensor import cuda_ops
     from octree_slam_tpu_torch.utils.metrics import ate_rmse
     from octree_slam_tpu_torch.utils.timing import EventTimer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
+    band_ops.reset_launches()
     t0 = time.perf_counter()
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
     sizes = []
@@ -510,6 +520,7 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
         "map_overflowed": bool(out.map_overflowed),
         "fb_hit_pixels": int((fb[..., :3].sum(-1) > 0).sum()),
         "launches": launches, "host_reads_last_frame": reads.count,
+        "band_launches": band_ops.LAUNCHES[band_ops.KERNEL],
         # (nodes, leaves) after each frame, read once after the run
         "map_size_by_frame": sizes,
         "wall_s_with_warmup": wall,
@@ -558,6 +569,10 @@ def _check_orbit(smi: str, cfg, out, res, n_frames: int, pinned):
     for name, n in res["launches"].items():
         want = n_frames if name in on_path else 0
         check(n == want, f"{tag} {name} launches {n} != {want}")
+    # the band kernel: one launch a hybrid frame, none on other renders
+    want = n_frames if res["render"] == "cone_hybrid" else 0
+    check(res["band_launches"] == want,
+          f"{tag} band_march launches {res['band_launches']} != {want}")
 
 
 def _path_kernels(cfg):
@@ -710,6 +725,82 @@ def _hybrid_mirror_check(smi: str, state, cfg, res):
     check(stamped > 0, "[cone_hybrid] no free cell carries a stamp")
 
 
+def band_march_work(lanes: int, gathers: int) -> int:
+    """Bytes the band march moves at the least: each lane's inputs (dirs
+    and inv_dirs f32[3], limit and start f32, miss bool) read once and
+    its outputs (rgb f32[3], w f32, active bool) written once, and each
+    gather of the mirror (one a live lane-trip with fused_dist, two
+    without) charged one 32-byte sector. Its float operations (~60 a
+    lane-trip) are far below the bytes' time."""
+    return lanes * (12 + 12 + 4 + 4 + 1 + 12 + 4 + 1) + 32 * gathers
+
+
+def _band_kernel_row(smi: str, state, cfg):
+    """The band kernel at the production shape, on the orbit's last frame:
+    its lanes, live lane-trips and outputs against the eager loop's (word
+    for word), each path's CUDA-event ms a call (launch included) and its
+    device ms (calls replayed from a CUDA graph), and the kernel's bound.
+    Returns the kernel's row."""
+    from octree_slam_tpu_torch import pipeline
+    from octree_slam_tpu_torch.render import band_ops, conesplat, hybrid
+    from octree_slam_tpu_torch.utils.timing import device_ms, median_ms
+    spec = pipeline._slab_spec(cfg)
+    fb, _, z_first = conesplat.render_cone_splat(
+        state.leaves, state.pool.center, state.pool.half_size, state.pose,
+        cfg.focal_x, cfg.focal_y, spec=spec, depth=cfg.max_depth,
+        want_aux=True)
+    C = cfg.cone_band_cap
+    # band_march_merge's defaults: grad_dilate 2, seed_halo 4
+    sel = hybrid._select(fb, z_first, spec, C, 2, cfg.cone_band_depth_prio,
+                         cfg.cone_band_sel_decimate)
+    lanes = hybrid._rays(
+        sel, z_first, state.pool.center, state.pool.half_size, state.pose,
+        cfg.focal_x, cfg.focal_y, spec=spec, depth=cfg.max_depth,
+        max_range=cfg.max_range, start_dist=cfg.start_dist, seed_halo=4)
+    kw = dict(depth=cfg.max_depth, dist_level=pipeline._accel_level(cfg),
+              max_range=cfg.max_range, band_iters=cfg.cone_band_iters,
+              fused_dist=cfg.cone_band_fused_dist)
+    args = (*lanes, state.accel, state.pool.center, state.pool.half_size)
+
+    def kernel(count_live=False):
+        return band_ops.band_march(*args, count_live=count_live, **kw)
+
+    def plain(count_live=False):
+        return hybrid._trips_eager(
+            *args, compact_after=cfg.cone_band_compact_after, crawl=1,
+            C2=max(128, C // 4), count_live=count_live, **kw)
+
+    before = band_ops.LAUNCHES[band_ops.KERNEL]
+    got, want = kernel(True), plain(True)
+    torch.cuda.synchronize()
+    check(band_ops.LAUNCHES[band_ops.KERNEL] == before + 1,
+          "[cone_hybrid] the wrapper did not launch band_march")
+    off = sum(int((g != x).sum()) for g, x in zip(got[:3], want[:3]))
+    live = int(got[3])
+    check(off == 0 and live == int(want[5]),
+          f"[cone_hybrid] band_march: {off} output words differ from the "
+          f"eager loop; live lane-trips {live} against {int(want[5])}")
+    ms, pms = median_ms(kernel), median_ms(plain, runs=9)
+    dms, pdms = device_ms(kernel), device_ms(plain, runs=9)
+    gathers = live * (1 if cfg.cone_band_fused_dist else 2)
+    nbytes = band_march_work(C, gathers)
+    bms, by = bound(nbytes, 0)
+    row = {"lanes": C, "trips": cfg.cone_band_iters, "live_lane_trips": live,
+           "fused_dist": cfg.cone_band_fused_dist, "bytes": nbytes,
+           "ms": ms, "plain_ms": pms, "device_ms": dms,
+           "plain_device_ms": pdms, "bound_ms": bms, "bound_by": by,
+           "library_ms": None, "max_abs_err": 0,
+           "launches_per_call": 1}
+    print(f"[cone_hybrid] {smi} | band_march {C} lanes x "
+          f"{cfg.cone_band_iters} trips, {live} live lane-trips: {off} "
+          f"output words differ from the eager loop | per call incl. "
+          f"launch: kernel {ms:.4f} ms, plain {pms:.4f} ms | device only "
+          f"(graph): kernel {dms:.4f} ms, plain {pdms:.4f} ms | bound "
+          f"{bms:.5f} ms ({by}: {nbytes} B), {100 * bms / dms:.1f}% of it "
+          f"on the device | launches " + json.dumps(band_ops.LAUNCHES))
+    return row
+
+
 def phase_orbit(smi: str, cfg, frames, gts, render: str, profile,
                 label: str | None = None, pinned=ORBIT_PIN,
                 most_reads: int = 1):
@@ -733,6 +824,7 @@ def phase_orbit(smi: str, cfg, frames, gts, render: str, profile,
           f"frame, expected 1 to {most}")
     if render == "cone_hybrid":
         _hybrid_mirror_check(smi, state, cfg, res)
+        res["band_march"] = _band_kernel_row(smi, state, cfg)
     if render == "cone_march":
         check(not bool(state.interior_stale)
               and not bool(state.mirror_stale),
@@ -2867,7 +2959,7 @@ def main(argv=None):
     phase_reference()
     hybrid_cfg = dataclasses.replace(cfg, **HYBRID_BAND)
     for render in ("cone", "cone_march", "cone_hybrid"):
-        launches[render], _, _ = phase_orbit(
+        launches[render], _, hybrid_res = phase_orbit(
             smi, hybrid_cfg if render == "cone_hybrid" else cfg, frames, gts,
             render, args.profile)
     launches.update(phase_features(smi, cfg, frames, gts, splat_registry))
@@ -2903,6 +2995,12 @@ def main(argv=None):
                 # one batch
                 "relocalize_launch_batch": RELOC_CANDIDATES,
                 **report[name]} for name, path in main_path.items()]
+    kernels.append({"name": "band_march", "route": "cuda",
+                    "source": BAND_SOURCE, "replaces": BAND_REPLACES,
+                    "main_path": "cone_hybrid",
+                    "launches": hybrid_res["band_launches"],
+                    "launches_per_frame": hybrid_res["band_launches"]
+                    / ORBIT_FRAMES, **hybrid_res["band_march"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

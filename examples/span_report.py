@@ -2,8 +2,10 @@
 of the port costs at the speed it runs, the insert's passes and leaves per
 frame, ICP's CUDA graph at work (its captures, replays and eager calls),
 the hybrid's band (its stage `step.band`, the spans `band.select` /
-`band.march` / `band.merge`, its lanes, trips and live lane-trips) and the
-heal (mirror rebuilds, distance refreshes and stamps), the host's waits on
+`band.march` / `band.merge`, its lanes, trips and live lane-trips, and the
+calls whose trips ran as the CUDA kernel or the eager loop beside the
+hybrid frames: `band_kernel_calls`, `band_eager_calls`,
+`hybrid_frame_count`) and the heal (mirror rebuilds, distance refreshes and stamps), the host's waits on
 the card, and what the recorder costs.
 
     PYTHONPATH=. python examples/span_report.py \
@@ -65,6 +67,8 @@ STAGES = ("step.pyramid", "step.track", "step.heal", "step.fuse",
           "step.render", "step.band", "app.consume")
 BAND_SPANS = ("band.select", "band.march", "band.merge")
 BAND_COUNTERS = ("band_lanes", "band_trips", "band_live_lane_trips")
+# the path a band's trips took: the CUDA kernel or the eager loop
+BAND_PATHS = ("band_kernel", "band_eager")
 HEAL_COUNTERS = ("mirror_rebuilds", "dist_refreshes", "dist_stamps")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACK_COUNTERS = tuple(tracking.CALLS)
@@ -143,8 +147,13 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     out["insert_passes_per_frame"] = mean_count("insert_passes")
     out["unique_leaves_per_frame"] = mean_count("unique_leaves")
     out["new_leaves_per_frame"] = mean_count("new_leaves")
-    for name in TRACK_COUNTERS + BAND_COUNTERS + HEAL_COUNTERS:
+    for name in TRACK_COUNTERS + BAND_COUNTERS + BAND_PATHS + HEAL_COUNTERS:
         out[f"{name}_per_frame"] = mean_count(name)
+    for name in BAND_PATHS:
+        out[f"{name}_calls"] = sum(v for i, v in rec.counter(name).items()
+                                   if i in frames)
+    out["hybrid_frame_count"] = len(
+        {s.frame for s in rec.spans if s.name == "step.band"} & frames)
     lanes, trips, live = (rec.counter(n) for n in BAND_COUNTERS)
     lane_trips = sum(lanes[i] * trips[i] for i in frames)
     out["band_live_share"] = (sum(live[i] for i in frames) / lane_trips

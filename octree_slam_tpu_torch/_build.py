@@ -117,6 +117,11 @@ def load(lib_path: Path) -> ctypes.CDLL:
         lib.oslam_bilateral_window.restype = i
     lib.oslam_gated_pyramid5x5.argtypes = [p, p, p, i, i, i, f, i, p]
     lib.oslam_gated_pyramid5x5.restype = i
+    # likewise an older source may lack band_march
+    if hasattr(lib, "oslam_band_march"):
+        lib.oslam_band_march.argtypes = [p, p, p, p, p, p, p, p, i, p, p, i,
+                                         i, i, i, f, i, p, p, p, p, p]
+        lib.oslam_band_march.restype = i
     lib.oslam_error_string.argtypes = [i]
     lib.oslam_error_string.restype = ctypes.c_char_p
     _lib = lib

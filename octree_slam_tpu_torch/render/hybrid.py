@@ -66,10 +66,19 @@ The reference's authors measured each of them on their TPU and kept them
 off; chip_smoke.py's `[knobs]` phase reads each one's PSNR and render time
 on the card.
 
+Where the trips run (`_band_kernel`, by what the call observes): on a
+CUDA device the fixed-trip march with crawl 1 is one launch of the
+hand-written kernel band_ops.band_march, one thread a lane with every trip
+in registers, equal word for word to the eager loop on the card; the CPU,
+the compacting march and crawl > 1 run the eager loop (`_trips_eager`),
+~78 PyTorch launches a trip on a card. The ray set-up (seeds, rays, the
+box, start and limit) is PyTorch on both paths.
+
 `band_march_merge` is three spans (utils/spans.py): "band.select" (the
 priorities and the top-C selection), "band.march" (seeds, ray set-up and
 the trips) and "band.merge". It counts the lanes marched (`band_lanes`,
-C), the trips run (`band_trips`; the compacting march's device count) and,
+C), the trips run (`band_trips`; the compacting march's device count), the
+path the trips took (`band_kernel` or `band_eager`, one a call) and,
 while the recorder is on, the lane-trips that still marched
 (`band_live_lane_trips`: the live lanes summed over the trips on the
 device, read at the recorder's stop()).
@@ -82,7 +91,7 @@ import torch.nn.functional as F
 
 from octree_slam_tpu_torch.core import packing
 from octree_slam_tpu_torch.map import mips
-from octree_slam_tpu_torch.render import conesplat
+from octree_slam_tpu_torch.render import band_ops, conesplat
 from octree_slam_tpu_torch.render.conesplat import SlabSpec
 from octree_slam_tpu_torch.render.raycast import (EXIT_CHECK_EVERY,
                                                   _ray_box, _spread3,
@@ -220,6 +229,23 @@ def _select(fb, z_first, spec: SlabSpec, C: int, grad_dilate: int,
     return sel
 
 
+def _band_kernel(device: torch.device, C: int, C2: int, compact_after: int,
+                 band_iters: int, crawl: int) -> bool:
+    """The band's trips run as band_ops' CUDA kernel: on a CUDA device, in
+    the fixed-trip shape (no lane packing) with one sample a trip. The CPU,
+    the compacting march and crawl > 1 run the eager loop."""
+    return (device.type == "cuda" and _fixed_trips(C, C2, compact_after,
+                                                   band_iters)
+            and crawl == 1)
+
+
+def _fixed_trips(C: int, C2: int, compact_after: int, band_iters: int
+                 ) -> bool:
+    """The march runs band_iters trips over all C lanes, with no exit test:
+    the production shape, which reads nothing back to the host."""
+    return C2 >= C or compact_after >= band_iters
+
+
 def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
            spec: SlabSpec, depth: int, dist_level: int, max_range: float,
            start_dist: float, band_iters: int, compact_after: int,
@@ -229,10 +255,48 @@ def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
     the lanes still active at the trip cap, the trips (an int, or the
     compacting march's device count), the trip after which the lanes were
     packed (0: not) and each lane's start."""
-    W, H = spec.width, spec.height
     dev = z_first.device
+    # the kernel reads the pool's 0-d half_size on the device; both paths
+    # derive the march's constants from it alike
+    half_size = torch.as_tensor(half_size, dtype=torch.float32, device=dev)
+    origin, dirs, inv_dirs, limit, start, miss = _rays(
+        sel, z_first, center, half_size, world_T_cam, fx, fy, spec=spec,
+        depth=depth, max_range=max_range, start_dist=start_dist,
+        seed_halo=seed_halo)
+
     count_live = spans.recording()
-    live = 0
+    if _band_kernel(dev, C, C2, compact_after, band_iters, crawl):
+        spans.count("band_kernel")
+        rgb, w, active, live = band_ops.band_march(
+            origin, dirs, inv_dirs, limit, start, miss, cache, center,
+            half_size, depth=depth, dist_level=dist_level,
+            max_range=max_range, band_iters=band_iters,
+            fused_dist=fused_dist, count_live=count_live)
+        trips, packed_at = band_iters, 0
+    else:
+        spans.count("band_eager")
+        rgb, w, active, trips, packed_at, live = _trips_eager(
+            origin, dirs, inv_dirs, limit, start, miss, cache, center,
+            half_size, depth=depth, dist_level=dist_level,
+            max_range=max_range, band_iters=band_iters,
+            compact_after=compact_after, crawl=crawl, fused_dist=fused_dist,
+            C2=C2, count_live=count_live)
+    if isinstance(trips, int):
+        spans.count("band_trips", trips)
+    else:
+        spans.count_device("band_trips", trips)
+    if count_live:
+        spans.count_device("band_live_lane_trips", live)
+    return rgb, w, active, trips, packed_at, start
+
+
+def _rays(sel, z_first, center, half_size, world_T_cam, fx, fy, *,
+          spec: SlabSpec, depth: int, max_range: float, start_dist: float,
+          seed_halo: int):
+    """The band lanes' rays, clipped to the octree volume and seeded from
+    the slab image: (origin f32[3], dirs and inv_dirs f32[C, 3], limit and
+    start f32[C], miss bool[C])."""
+    W, H = spec.width, spec.height
 
     # --- seeds: one leaf before the nearest first-contributing slab
     # boundary of the pixel's neighbourhood (z_first is +inf where no slab
@@ -249,10 +313,7 @@ def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
           .to(torch.float32)) / fy
     dz = 1.0 / torch.sqrt(xr * xr + yr * yr + 1.0)
 
-    moves = dirs.abs() > 1e-9
-    forward = dirs > 0
-    inv_dirs = torch.where(moves, 1.0 / dirs, torch.inf)
-    linf = torch.clamp(dirs.abs().amax(dim=-1), min=1e-6)
+    inv_dirs = torch.where(dirs.abs() > 1e-9, 1.0 / dirs, torch.inf)
     t0, t1 = _ray_box(origin, dirs, inv_dirs, center - half_size,
                       center + half_size)
     miss = (t0 > t1) | (t1 < 0.0) | (t0 > max_range)
@@ -261,17 +322,37 @@ def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
     t_seed = torch.where(torch.isfinite(seed_z), seed_z / dz, 0.0)
     limit = torch.clamp(t1, max=max_range)
     start = torch.minimum(torch.maximum(start, t_seed), limit)
+    return origin, dirs, inv_dirs, limit, start, miss
+
+
+def _trips_eager(origin, dirs, inv_dirs, limit, start, miss, cache, center,
+                 half_size, *, depth: int, dist_level: int, max_range: float,
+                 band_iters: int, compact_after: int, crawl: int,
+                 fused_dist: bool, C2: int, count_live: bool):
+    """The march's trips over the lanes (rays from `origin` along `dirs`,
+    from `start` to `limit`; `miss` lanes finish at once) in PyTorch
+    launches: the plain version of band_ops.band_march, and the only
+    version of the compacting march and of crawl > 1. Returns (rgb, w,
+    active, trips, packed_at, live): live is, with count_live, the 0-d
+    count of the lane-trips that marched, else 0."""
+    dev = dirs.device
+    C = dirs.shape[0]
+    live = 0
 
     # --- seeded exact march over the band lanes: cone_trace_dense's body
     # at the fixed leaf level, the same accumulation and ending rules ---
     n_leaf = 1 << depth
     bbox0 = center - half_size
+    leaf_cell = (2.0 * half_size) / (1 << depth)
     cell_l = (2.0 * half_size) / (1 << dist_level)
     shift_l = depth - dist_level
     leaf_off = mips.level_offset(depth)
     eps = 0.05 * leaf_cell
     min_step = 0.25 * leaf_cell
     spread = _spread3(depth, str(dev))
+    moves = dirs.abs() > 1e-9
+    forward = dirs > 0
+    linf = torch.clamp(dirs.abs().amax(dim=-1), min=1e-6)
 
     def quantize(pos):
         return torch.clamp(torch.floor((pos - bbox0) / leaf_cell)
@@ -383,7 +464,7 @@ def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
     lanes = (torch.where(miss, max_range, start),
              torch.zeros((C, 3), dtype=torch.float32, device=dev),
              torch.where(miss, 255.0, 0.0), ~miss)
-    if C2 >= C or compact_after >= band_iters:
+    if _fixed_trips(C, C2, compact_after, band_iters):
         # the fixed-trip march, the production shape: band_iters trips
         # with no exit test, so it reads nothing back to the host; only
         # this shape takes `crawl` (band_iters then counts trips of up to
@@ -427,14 +508,8 @@ def _march(sel, z_first, cache, center, half_size, world_T_cam, fx, fy, *,
             lanes = tuple(x.index_copy_(0, sub, y)
                           for x, y in zip(full, lanes))
         trips = needed
-    if isinstance(trips, int):
-        spans.count("band_trips", trips)
-    else:
-        spans.count_device("band_trips", trips)
-    if count_live:
-        spans.count_device("band_live_lane_trips", live)
     _, rgb, w, active = lanes
-    return rgb, w, active, trips, packed_at, start
+    return rgb, w, active, trips, packed_at, live
 
 
 def _merge(fb, sel, rgb, w, active) -> torch.Tensor:

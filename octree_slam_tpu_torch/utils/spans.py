@@ -11,8 +11,9 @@ whose vector it reads. `count(name, n)` adds to a host counter of the
 current frame; `count_device(name, t)` keeps a reference to a 0-d device
 tensor the program computes anyway (no launch, no host read), and
 `stop()` reads all of them in one transfer. One counter is not computed
-anyway: the hybrid band's live lane-trips, two small launches a trip,
-which the band adds only while `recording()`.
+anyway: the hybrid band's live lane-trips (on the card one zeroed
+counter and an atomic add a block in the band kernel; in the eager loop
+two small launches a trip), which the band adds only while `recording()`.
 
 Off by default, with no option or environment variable. Off, a span is one
 shared no-op object when no torch.profiler runs, and `record_function`
