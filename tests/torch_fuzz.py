@@ -10,8 +10,8 @@ with run_fuzz's draws. A round is a short list of `Op`s, drawn against
 the primary pool and then applied (run_rounds), the same ops to every
 pool that is held against it: the JAX package's
 (tests/test_torch_fuzz_map.py), the card's
-(tests/test_torch_cuda_fuzz_map.py, chip_smoke.py [fuzz_map]) and the
-numpy oracle (tests/oracle.py). The oracle helpers are copies of
+(tests/test_torch_cuda_fuzz_map.py, at run_fuzz's sizes and at a run's)
+and the numpy oracle (tests/oracle.py). The oracle helpers are copies of
 test_fuzz_map.py's, with the words unpacked by the port's core/packing.
 Nothing here imports JAX, so it runs where JAX is not installed.
 """
