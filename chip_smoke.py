@@ -20,7 +20,11 @@ result line):
      (50 calls replayed from a CUDA graph, their mean), beside the kernel's bound (the larger of
      its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
      from the shapes of the inputs, slambench/roofline.py) and its share
-     of that bound;
+     of that bound; [splat]: the splat's z-buffer kernel against the plain
+     splat_zbuffer at 2, 4 and 8 M live leaves of a 2^23-row registry
+     (random occupied leaves in the view's box), word for word, with the
+     same times and its byte bound (8 B a live row and the 1.2 MB image
+     written twice, over 3.35 TB/s);
   4. main path: the 14-frame synthetic orbit of bench.py (640x480, depth 9,
      2 cm leaves; tests/torch_orbit.py) through pipeline.init_state +
      pipeline.step("splat"), with per-frame CUDA-event times and launch
@@ -38,7 +42,8 @@ result line):
      word for word, one rebuilt from the pool and stamped; the band's size,
      the share of its rays still active at the trip cap and the peak
      device memory are printed; the band's trips run as the kernel
-     band_march, one launch a frame; on the last frame the kernel's
+     band_march, one launch a frame (every splat frame's z-buffer is one
+     launch of splat_zbuffer, in every phase); on the last frame the kernel's
      outputs and live lane-trips must equal the eager loop's word for
      word, and its row gives both paths' per-call and device ms, its byte
      bound (each gather one 32-byte sector, over 3.35 TB/s) and launches;
@@ -168,6 +173,13 @@ SOURCE = "octree_slam_tpu_torch/csrc/sensor_stencils.cu"
 BAND_SOURCE = "octree_slam_tpu_torch/csrc/band_march.cu"
 BAND_REPLACES = ("none: the lax.while_loop of "
                  "octree_slam_tpu/render/hybrid.py:420")
+# the splat's z-buffer: no Pallas kernel, the reference's plain XLA
+SPLAT_SOURCE = "octree_slam_tpu_torch/csrc/splat.cu"
+SPLAT_REPLACES = ("none: splat_zbuffer of octree_slam_tpu/render/splat.py, "
+                  "plain XLA")
+# [splat]: the registry's rows and the live leaves of each case
+SPLAT_CAPACITY = 1 << 23
+SPLAT_LEAVES = (2_000_000, 4_000_000, 8_000_000)
 # the same orbit at a WINDOW_SIZE window (bilateral_window is bit-exact
 # against its plain version too): ATE (tolerance orb.ORBIT_ATE_TOL_M), nodes,
 # leaves
@@ -324,13 +336,99 @@ def phase_kernels():
     return report
 
 
+def splat_zbuffer_bytes(live: int, width: int, height: int) -> int:
+    """Bytes the splat's z-buffer moves at the least: each live row's key
+    and word (8 B) read once, and the i32 image written twice (the fill,
+    then the words). Its float operations (~60 a live row) and the
+    atomics into the L2-resident image are far below the bytes' time."""
+    return 8 * live + 2 * 4 * width * height
+
+
+def _splat_case(smi: str, cfg, live: int, gen):
+    """The splat kernel on a registry of SPLAT_CAPACITY rows whose first
+    `live` are random occupied leaves in a 4 x 3 x 4 m box 0.5 m in front
+    of the camera (about 26 a pixel at 8 M), the rest free, against the
+    plain splat_zbuffer: word for word, with both paths' CUDA-event ms a
+    call (launch included) and device ms (calls replayed from a CUDA
+    graph), and the kernel's bound. Returns the case's row."""
+    from octree_slam_tpu_torch.core import packing
+    from octree_slam_tpu_torch.map import morton
+    from octree_slam_tpu_torch.render import splat, splat_ops
+    from octree_slam_tpu_torch.utils.timing import device_ms, median_ms
+    dev = torch.device("cuda")
+    lc, half = SPLAT_CAPACITY, 2.56
+    center = torch.zeros(3, device=dev)
+    half_t = torch.tensor(half, device=dev)
+    lo = torch.tensor([-2.0, -1.5, 0.5], device=dev)
+    pts = lo + torch.rand((live, 3), generator=gen, device=dev) \
+        * torch.tensor([4.0, 3.0, 4.0], device=dev)
+    keys = torch.full((lc,), -1, dtype=torch.int32, device=dev)
+    keys[:live] = morton.encode(pts, center, half, cfg.max_depth)[0]
+    rgb = torch.randint(0, 256, (live, 3), generator=gen, device=dev)
+    vals = torch.zeros((lc,), dtype=torch.int32, device=dev)
+    vals[:live] = packing.pack_rgba8(rgb[:, 0], rgb[:, 1], rgb[:, 2],
+                                     torch.full_like(rgb[:, 0], 200))
+    count = torch.tensor(live, dtype=torch.int32, device=dev)
+    pose = torch.eye(4, device=dev)
+    del pts, rgb
+    kw = dict(width=cfg.width, height=cfg.height, depth=cfg.max_depth,
+              max_range=cfg.max_range)
+
+    def kernel():
+        return splat_ops.splat_zbuffer(vals, keys, count, center, half_t,
+                                       pose, cfg.focal_x, cfg.focal_y,
+                                       **kw)[0]
+
+    def plain():
+        lv = (torch.arange(lc, device=dev) < count) & (keys >= 0)
+        return splat.splat_zbuffer(vals, keys, lv, center, half_t, pose,
+                                   cfg.focal_x, cfg.focal_y, **kw)
+
+    before = splat_ops.LAUNCHES[splat_ops.KERNEL]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(splat_ops.LAUNCHES[splat_ops.KERNEL] == before + 1,
+          "[splat] the wrapper did not launch splat_zbuffer")
+    off = int((got != want).sum())
+    hits = int((want != splat.EMPTY).sum())
+    check(off == 0, f"[splat] splat_zbuffer at {live} leaves: {off} words "
+          f"differ from the plain version")
+    check(hits > cfg.width * cfg.height // 2,
+          f"[splat] {hits} pixels hit at {live} leaves")
+    ms, pms = median_ms(kernel), median_ms(plain, runs=9)
+    dms, pdms = device_ms(kernel), device_ms(plain, runs=9)
+    nbytes = splat_zbuffer_bytes(live, cfg.width, cfg.height)
+    bms, by = _bound(nbytes, 0)
+    print(f"[splat] {smi} | splat_zbuffer {live} live of {lc} rows, "
+          f"{hits} pixels hit: {off} words differ from the plain version | "
+          f"per call incl. launch and fill: kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms | device only (graph): kernel {dms:.4f} ms, plain "
+          f"{pdms:.4f} ms | bound {bms:.5f} ms ({by}: {nbytes} B), "
+          f"{100 * bms / dms:.1f}% of it on the device")
+    return {"live_leaves": live, "rows": lc, "pixels_hit": hits,
+            "bytes": nbytes, "ms": ms, "plain_ms": pms, "device_ms": dms,
+            "plain_device_ms": pdms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "max_abs_err": 0, "launches_per_call": 1}
+
+
+def phase_splat(smi: str, cfg):
+    """[splat]: the splat kernel's cases at SPLAT_LEAVES; returns the rows
+    by live leaves."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for live in SPLAT_LEAVES:
+        rows[live] = _splat_case(smi, cfg, live, gen)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _drive_orbit(cfg, frames, gts, render: str, label: str):
     """The orbit through init_state + step(render) with the kernels'
     launch counts set to 0 just before and read just after; per-frame
     CUDA-event times of the frames after the warm-up, and the last frame's
     count of synchronising host reads."""
     from octree_slam_tpu_torch import pipeline
-    from octree_slam_tpu_torch.render import band_ops
+    from octree_slam_tpu_torch.render import band_ops, splat_ops
     from octree_slam_tpu_torch.sensor import cuda_ops
     from octree_slam_tpu_torch.utils.metrics import ate_rmse
     from octree_slam_tpu_torch.utils.timing import EventTimer
@@ -338,6 +436,7 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
     band_ops.reset_launches()
+    splat_ops.reset_launches()
     t0 = time.perf_counter()
     state = pipeline.init_state(cfg, initial_pose=gts[0], device="cuda")
     sizes = []
@@ -379,6 +478,7 @@ def _drive_orbit(cfg, frames, gts, render: str, label: str):
         "fb_hit_pixels": int((fb[..., :3].sum(-1) > 0).sum()),
         "launches": launches, "host_reads_last_frame": reads.count,
         "band_launches": band_ops.LAUNCHES[band_ops.KERNEL],
+        "splat_launches": splat_ops.LAUNCHES[splat_ops.KERNEL],
         # (nodes, leaves) after each frame, read once after the run
         "map_size_by_frame": sizes,
         "wall_s_with_warmup": wall,
@@ -431,6 +531,10 @@ def _check_orbit(smi: str, cfg, out, res, n_frames: int, pinned):
     want = n_frames if res["render"] == "cone_hybrid" else 0
     check(res["band_launches"] == want,
           f"{tag} band_march launches {res['band_launches']} != {want}")
+    # the splat's z-buffer kernel: one launch a splat frame
+    want = n_frames if res["render"] == "splat" else 0
+    check(res["splat_launches"] == want,
+          f"{tag} splat_zbuffer launches {res['splat_launches']} != {want}")
 
 
 def _path_kernels(cfg):
@@ -1297,9 +1401,10 @@ def main(argv=None):
     phase_build()
     report = phase_kernels()
     cfg = orb.bench_config()
+    splat_rows = phase_splat(smi, cfg)
     frames, gts = orb.orbit(cfg)
     launches = {}
-    launches["splat"], state, _ = phase_orbit(
+    launches["splat"], state, splat_res = phase_orbit(
         smi, cfg, frames, gts, "splat", args.profile)
     splat_registry = orb.sorted_registry(state)
     del state
@@ -1340,6 +1445,14 @@ def main(argv=None):
                     "launches": hybrid_res["band_launches"],
                     "launches_per_frame": hybrid_res["band_launches"]
                     / orb.ORBIT_FRAMES, **hybrid_res["band_march"]})
+    kernels.append({"name": "splat_zbuffer", "route": "cuda",
+                    "source": SPLAT_SOURCE, "replaces": SPLAT_REPLACES,
+                    "main_path": "splat",
+                    "launches": splat_res["splat_launches"],
+                    "launches_per_frame": splat_res["splat_launches"]
+                    / orb.ORBIT_FRAMES,
+                    **splat_rows[SPLAT_LEAVES[-1]],
+                    "by_live_leaves": splat_rows})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

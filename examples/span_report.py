@@ -5,7 +5,11 @@ the hybrid's band (its stage `step.band`, the spans `band.select` /
 `band.march` / `band.merge`, its lanes, trips and live lane-trips, and the
 calls whose trips ran as the CUDA kernel or the eager loop beside the
 hybrid frames: `band_kernel_calls`, `band_eager_calls`,
-`hybrid_frame_count`) and the heal (mirror rebuilds, distance refreshes and stamps), the host's waits on
+`hybrid_frame_count`), the splat (the calls whose z-buffer ran as the CUDA
+kernel or the plain version beside the frames rendered with the splat:
+`splat_kernel_calls`, `splat_eager_calls`, `splat_frame_count`; and
+`splat_atomic_share`, the kernel's rows that issued an atomicMin over its
+live rows) and the heal (mirror rebuilds, distance refreshes and stamps), the host's waits on
 the card, and what the recorder costs.
 
     PYTHONPATH=. python examples/span_report.py \
@@ -70,6 +74,9 @@ BAND_COUNTERS = ("band_lanes", "band_trips", "band_live_lane_trips")
 # the path a band's trips took: the CUDA kernel or the eager loop
 BAND_PATHS = ("band_kernel", "band_eager")
 HEAL_COUNTERS = ("mirror_rebuilds", "dist_refreshes", "dist_stamps")
+# the path a splat's z-buffer took, and the kernel's live rows and atomics
+SPLAT_PATHS = ("splat_kernel", "splat_eager")
+SPLAT_COUNTERS = ("splat_live_rows", "splat_atomics")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACK_COUNTERS = tuple(tracking.CALLS)
 
@@ -118,8 +125,18 @@ def _measure(iv):
     return sum(b - a for a, b in _union(iv))
 
 
-def span_metrics(rec: spans.Record, frames) -> dict:
-    """Per frame means over `frames` (whole frames of rec)."""
+def splat_frames(cell, frames) -> set:
+    """The frames among `frames` that render the cell's view with the
+    splat (run_slam renders frame i where i % render_every == 0)."""
+    if cell.render != "splat":
+        return set()
+    every = int(cell.traffic.get("render_every", 1))
+    return {i for i in frames if i % every == 0}
+
+
+def span_metrics(rec: spans.Record, frames, splat=()) -> dict:
+    """Per frame means over `frames` (whole frames of rec); `splat` are
+    the frames that rendered the splat view."""
     frames = set(frames)
 
     def mean_ms(name):
@@ -147,9 +164,10 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     out["insert_passes_per_frame"] = mean_count("insert_passes")
     out["unique_leaves_per_frame"] = mean_count("unique_leaves")
     out["new_leaves_per_frame"] = mean_count("new_leaves")
-    for name in TRACK_COUNTERS + BAND_COUNTERS + BAND_PATHS + HEAL_COUNTERS:
+    for name in (TRACK_COUNTERS + BAND_COUNTERS + BAND_PATHS + HEAL_COUNTERS
+                 + SPLAT_PATHS + SPLAT_COUNTERS):
         out[f"{name}_per_frame"] = mean_count(name)
-    for name in BAND_PATHS:
+    for name in BAND_PATHS + SPLAT_PATHS:
         out[f"{name}_calls"] = sum(v for i, v in rec.counter(name).items()
                                    if i in frames)
     out["hybrid_frame_count"] = len(
@@ -158,6 +176,11 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     lane_trips = sum(lanes[i] * trips[i] for i in frames)
     out["band_live_share"] = (sum(live[i] for i in frames) / lane_trips
                               if lane_trips else None)
+    out["splat_frame_count"] = len(set(splat) & frames)
+    rows, atomics = (rec.counter(n) for n in SPLAT_COUNTERS)
+    live = sum(rows[i] for i in frames)
+    out["splat_atomic_share"] = (sum(atomics[i] for i in frames) / live
+                                 if live else None)
     out["stages_ms"] = sum(out[n] or 0.0 for n in STAGES)
     hybrid = sum(out[n] or 0.0 for n in ("step.heal", "step.render",
                                          "step.band"))
@@ -166,10 +189,10 @@ def span_metrics(rec: spans.Record, frames) -> dict:
     return out
 
 
-def with_hybrid_frames(rec: spans.Record, frames) -> dict:
+def with_hybrid_frames(rec: spans.Record, frames, cell) -> dict:
     """span_metrics over `frames`, and over those of them that rendered a
     hybrid view where that is some of them but not all."""
-    out = span_metrics(rec, frames)
+    out = span_metrics(rec, frames, splat_frames(cell, frames))
     banded = {s.frame for s in rec.spans if s.name == "step.band"}
     some = [i for i in frames if i in banded]
     if some and len(some) < len(frames):
@@ -268,7 +291,7 @@ def traced(cell, seed, seconds, dev, log) -> dict:
            "track_calls": dict(tracking.CALLS),
            "spans_first_frame": rec.frames[0] if rec.frames else None,
            "profiler_first_frame": lp.prof_first,
-           **with_hybrid_frames(rec, before),
+           **with_hybrid_frames(rec, before, cell),
            **idle_outside_step(box["trace"], rec)}
     track_host = out["result_metrics"].get("track_host_ms")
     if track_host and out["track_span_ms"]:
@@ -315,9 +338,9 @@ def window(cell, seed, seconds, dev, spans_on: bool) -> dict:
     tail = [i for i, v in frame_ms.items() if v > p95]
     mid = [i for i, v in frame_ms.items() if lo <= v <= hi]
     out["frame_span_p95_ms"] = p95
-    out["tail"] = with_hybrid_frames(rec, tail)
-    out["median_frames"] = with_hybrid_frames(rec, mid)
-    out["all_frames"] = with_hybrid_frames(rec, list(frame_ms))
+    out["tail"] = with_hybrid_frames(rec, tail, cell)
+    out["median_frames"] = with_hybrid_frames(rec, mid, cell)
+    out["all_frames"] = with_hybrid_frames(rec, list(frame_ms), cell)
     grows = [(s.frame, (s.t1 - s.t0) * 1e-6) for s in rec.spans
              if s.name == "app.grow"]
     out["grow_frames_ms"] = grows
@@ -387,7 +410,10 @@ def main(argv=None) -> int:
                     short["all_frames"] = {
                         k2: v for k2, v in short["all_frames"].items()
                         if k2 in ("frames", "app.frame", "hybrid_share",
-                                  "band_span_ms", "hybrid_frames")}
+                                  "band_span_ms", "hybrid_frames",
+                                  "render_span_ms", "splat_kernel_calls",
+                                  "splat_eager_calls", "splat_frame_count",
+                                  "splat_atomic_share")}
                 print(json.dumps(short), flush=True)
         (out_dir / f"{seed}.json").write_text(json.dumps(runs, indent=1))
     return 0

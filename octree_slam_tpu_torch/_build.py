@@ -122,6 +122,11 @@ def load(lib_path: Path) -> ctypes.CDLL:
         lib.oslam_band_march.argtypes = [p, p, p, p, p, p, p, p, i, p, p, i,
                                          i, i, i, f, i, p, p, p, p, p]
         lib.oslam_band_march.restype = i
+    # and splat_zbuffer
+    if hasattr(lib, "oslam_splat_zbuffer"):
+        lib.oslam_splat_zbuffer.argtypes = [p, p, p, i, p, p, p, i, i, f, f,
+                                            f, f, i, i, i, f, f, p, p, p]
+        lib.oslam_splat_zbuffer.restype = i
     lib.oslam_error_string.argtypes = [i]
     lib.oslam_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -617,8 +617,8 @@ def _zbuffer_sharded(leaf_vals, leaf_keys, center, half_size, world_T_cam,
     bufs = []
     for vals, keys in zip(leaf_vals, leaf_keys):
         dev = keys.device
-        bufs.append(sp.splat_zbuffer(
-            vals, keys, keys >= 0, center.to(dev), half_size.to(dev),
+        bufs.append(sp.leaf_zbuffer(
+            vals, keys, None, center.to(dev), half_size.to(dev),
             world_T_cam.to(dev), fx, fy, width=cfg.width, height=cfg.height,
             depth=cfg.max_depth, max_range=cfg.max_range))
     return pmin(bufs)[0]

@@ -31,7 +31,7 @@ import torch
 from octree_slam_tpu_torch.config import SLAMConfig
 from octree_slam_tpu_torch.core.types import PyramidLevel
 from octree_slam_tpu_torch.render.splat import (EMPTY, LeafList,
-                                                dilate_zbuffer, splat_zbuffer)
+                                                dilate_zbuffer, leaf_zbuffer)
 from octree_slam_tpu_torch.sensor import tracking
 
 
@@ -58,17 +58,12 @@ def pyramid_from_zbuffer(buf: torch.Tensor, cfg: SLAMConfig):
     return tracking.build_pyramid(depth_mm, color, cfg)
 
 
-def _live(leaves: LeafList) -> torch.Tensor:
-    return (torch.arange(leaves.keys.shape[0], device=leaves.keys.device)
-            < leaves.count) & (leaves.keys >= 0)
-
-
 def _zbuffer(leaves: LeafList, center, half_size, pose,
              cfg: SLAMConfig) -> torch.Tensor:
-    return splat_zbuffer(leaves.vals, leaves.keys, _live(leaves), center,
-                         half_size, pose, cfg.focal_x, cfg.focal_y,
-                         width=cfg.width, height=cfg.height,
-                         depth=cfg.max_depth, max_range=cfg.max_range)
+    return leaf_zbuffer(leaves.vals, leaves.keys, leaves.count, center,
+                        half_size, pose, cfg.focal_x, cfg.focal_y,
+                        width=cfg.width, height=cfg.height,
+                        depth=cfg.max_depth, max_range=cfg.max_range)
 
 
 def model_pyramid(leaves: LeafList, center: torch.Tensor, half_size,

@@ -9,6 +9,16 @@ quantized-depth<<16 | RGB565 into one int32 per leaf and resolves
 visibility and colour together with one scatter-min, then fills 1-2 pixel
 holes with a 3x3 min dilation.
 
+Where the z-buffer is made (`leaf_zbuffer`, by what the call observes): on
+a CUDA device it is one launch of the hand-written kernel
+splat_ops.splat_zbuffer over the registry's live rows, equal word for word
+to the plain version on the card; on the CPU it is the plain version
+`splat_zbuffer`, ~160 PyTorch ops over the registry's whole capacity.
+`leaf_zbuffer` counts the path it took (`splat_kernel` or `splat_eager`,
+one a call) and, on the kernel path while the recorder is on, the live
+rows and the rows that issued an atomicMin (`splat_live_rows`,
+`splat_atomics`: device counters read at the recorder's stop()).
+
 `leaf_list_from_extraction` rebuilds the registry from an extraction of
 the pool (growth after an overflow, tiering, rebuilds across a prealloc
 boundary); `pad_leaf_list` pads it to a larger capacity. The registry's
@@ -26,8 +36,10 @@ import torch.nn.functional as F
 from octree_slam_tpu_torch.core import packing
 from octree_slam_tpu_torch.map import morton
 from octree_slam_tpu_torch.map.svo import InsertStats, SVONodePool
+from octree_slam_tpu_torch.render import splat_ops
 from octree_slam_tpu_torch.render.points import (DEPTH_INF, pack_rgb565,
                                                  unpack_rgb565)
+from octree_slam_tpu_torch.utils import spans
 from octree_slam_tpu_torch.utils.compaction import scatter_set_
 
 EMPTY = DEPTH_INF  # no-hit sentinel: sorts after every packed depth word
@@ -169,6 +181,41 @@ def splat_zbuffer(vals: torch.Tensor, keys: torch.Tensor, live: torch.Tensor,
     return buf[:num_pix]
 
 
+def _splat_kernel(device: torch.device) -> bool:
+    """The z-buffer is made by splat_ops' CUDA kernel: on a CUDA device.
+    The CPU runs the plain version."""
+    return device.type == "cuda"
+
+
+def leaf_zbuffer(vals: torch.Tensor, keys: torch.Tensor, count,
+                 center: torch.Tensor, half_size, world_T_cam: torch.Tensor,
+                 fx, fy, *, width: int, height: int, depth: int,
+                 max_range: float = 10.0) -> torch.Tensor:
+    """splat_zbuffer of a registry's rows [0, count) whose key is >= 0:
+    count is the registry's i32[] counter, or None for every row (a shard's
+    registry, whose free rows hold -1)."""
+    dev = keys.device
+    if _splat_kernel(dev):
+        spans.count("splat_kernel")
+        stats = spans.recording()
+        buf, counts = splat_ops.splat_zbuffer(
+            vals, keys, count, center,
+            torch.as_tensor(half_size, dtype=torch.float32, device=dev),
+            world_T_cam, fx, fy, width=width, height=height, depth=depth,
+            max_range=max_range, count_stats=stats)
+        if stats:
+            spans.count_device("splat_live_rows", counts[0])
+            spans.count_device("splat_atomics", counts[1])
+        return buf
+    spans.count("splat_eager")
+    live = keys >= 0
+    if count is not None:
+        live &= torch.arange(keys.shape[0], device=dev) < count
+    return splat_zbuffer(vals, keys, live, center, half_size, world_T_cam,
+                         fx, fy, width=width, height=height, depth=depth,
+                         max_range=max_range)
+
+
 def dilate_zbuffer(buf: torch.Tensor, *, width: int, height: int,
                    rounds: int = 2) -> torch.Tensor:
     """Image-space hole filling: EMPTY pixels take the min (= nearest)
@@ -202,10 +249,7 @@ def render_splat(pool: SVONodePool, leaves: LeafList,
                  height: int, depth: int, max_range: float = 10.0,
                  dilate: int = 2) -> torch.Tensor:
     """Render occupied leaf voxels to f32[height, width, 4]."""
-    lc = leaves.keys.shape[0]
-    live = (torch.arange(lc, device=leaves.keys.device) < leaves.count) \
-        & (leaves.keys >= 0)
-    buf = splat_zbuffer(leaves.vals, leaves.keys, live, pool.center,
-                        pool.half_size, world_T_cam, fx, fy, width=width,
-                        height=height, depth=depth, max_range=max_range)
+    buf = leaf_zbuffer(leaves.vals, leaves.keys, leaves.count, pool.center,
+                       pool.half_size, world_T_cam, fx, fy, width=width,
+                       height=height, depth=depth, max_range=max_range)
     return finish_zbuffer(buf, width=width, height=height, dilate=dilate)

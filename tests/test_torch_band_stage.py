@@ -197,7 +197,7 @@ def test_live_lane_trips_counts_the_live_lanes(orbit, compact_after):
 
 def test_splat_frames_keep_their_stages(orbit):
     """A splat frame under the recorder: the five step stages, no band
-    span, and only the insert's and ICP's counters."""
+    span, and only the insert's, ICP's and the splat path's counters."""
     frames, poses = orbit
     state = pipeline.init_state(CFG, initial_pose=poses[0], device="cpu")
     state, _ = pipeline.step(state, frames[0], CFG, render="cone_hybrid")
@@ -209,4 +209,5 @@ def test_splat_frames_keep_their_stages(orbit):
     assert [s.name for s in rec.spans if s.name.startswith("step.")] == STAGES
     assert not any(s.name.startswith("band.") for s in rec.spans)
     assert set(rec.counters[0]) == {"insert_passes", "unique_leaves",
-                                    "new_leaves", "track_eager"}
+                                    "new_leaves", "track_eager",
+                                    "splat_eager"}
