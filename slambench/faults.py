@@ -1,8 +1,9 @@
 """Faults planted under the timed path, to show that `correct` comes out
-false for each fault a cell can have: each wraps the program's
-pipeline.step (install with `planted`). The cells have one chip, so the
-exchange between chips is not among them. Used by the tests and by
-readings.py's --fault."""
+false for each fault a cell can have: each wraps a function of the
+program, pipeline.step or, for `moved_recovery`, relocalize.relocalize
+(install with `planted`). The cells have one chip, so the exchange
+between chips is not among them. Used by the tests and by readings.py's
+--fault."""
 
 from __future__ import annotations
 
@@ -51,17 +52,37 @@ def inverted_view(inner):
     return step
 
 
-FAULTS = {f.__name__: f for f in (unchanged, half_frame, moved_pose,
-                                  inverted_view)}
+def moved_recovery(inner):
+    """The answer altered where it is produced: a relocalized pose off by
+    1 mm (a run with no tracking loss never calls it)."""
+    def relocalize(state, cfg, keyposes):
+        pose, ok, diag = inner(state, cfg, keyposes)
+        if ok:
+            pose = pose.copy()
+            pose[0, 3] += 1e-3
+        return pose, ok, diag
+    return relocalize
+
+
+# the faults of pipeline.step, which every run calls
+STEP_FAULTS = {f.__name__: f for f in (unchanged, half_frame, moved_pose,
+                                       inverted_view)}
+FAULTS = dict(STEP_FAULTS, moved_recovery=moved_recovery)
+# the program's module and function each fault wraps
+TARGETS = dict({name: ("pipeline", "step") for name in STEP_FAULTS},
+               moved_recovery=("relocalize", "relocalize"))
 
 
 @contextlib.contextmanager
 def planted(name: str):
-    """pipeline.step replaced by FAULTS[name] of it, for the block."""
-    from octree_slam_tpu_torch import pipeline
-    inner = pipeline.step
-    pipeline.step = FAULTS[name](inner)
+    """The program's function that FAULTS[name] wraps replaced by the
+    fault of it, for the block."""
+    import importlib
+    module, attr = TARGETS[name]
+    mod = importlib.import_module(f"octree_slam_tpu_torch.{module}")
+    inner = getattr(mod, attr)
+    setattr(mod, attr, FAULTS[name](inner))
     try:
         yield
     finally:
-        pipeline.step = inner
+        setattr(mod, attr, inner)

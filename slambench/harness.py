@@ -17,9 +17,9 @@ time between two calls is one iteration of the loop.
 
 After the window the program's outputs (every frame's pose and divergence
 flag, the final map's leaves and words, the last rendered framebuffer)
-are held against the
-plain reference of slambench/reference/, which works the same frames out
-again: `check` below.
+are held against the plain reference of slambench/reference/, which works
+the same frames out again, a tracking loss and its relocalization
+attempts included: `check` below.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ from slambench import stream as stream_mod
 from slambench import trace as trace_mod
 from slambench.reference import F32, TF32
 from slambench.reference import fusion as ref_fusion
+from slambench.reference import reloc as ref_reloc
 from slambench.reference import render as ref_render
 from slambench.reference import sensor as ref_sensor
 
@@ -289,6 +290,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     slam = cell.slam
     ref_sensor.check_config(slam)
     ref_render.check_config(slam, cell.render)
+    ref_reloc.check_config(slam)
     cfg = slam_config(slam)
     seed = int(seed) % (1 << 63)
     if dev.type == "cuda":
@@ -322,9 +324,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     flags = torch.stack([torch.stack([a, b]) for a, b in tap.flags]).cpu() \
         .numpy().astype(bool)
     diverged, overflowed = flags[:, 0], flags[:, 1]
-    failed = int(overflowed[warmup:].sum())
-    if res.diverged:
-        failed += int(diverged[warmup:].sum())
 
     # the program's outputs, then its state is freed before the reference
     final = state_out.pop()
@@ -345,9 +344,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         loop.prof = None
 
     t_check = time.perf_counter()
-    checks, ctrl = check(cell, stream, prog, n_run, dev, control=control)
+    checks, ctrl, redo = check(cell, stream, prog, n_run, dev,
+                               control=control)
     t_check = time.perf_counter() - t_check
     correct = all(v <= lim for v, lim in checks.values())
+    # failed: a frame whose map overflowed, or that the program held lost
+    # where the reference's redo had resumed tracking; a loss still open
+    # on both sides when the window closes is no failure
+    failed = int((overflowed[warmup:]
+                  | (diverged[warmup:] & ~redo["flags"][warmup:])).sum())
 
     out = {"correct": correct, "attempted": n_win, "failed": failed}
     if trace:
@@ -380,6 +385,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                 "idle_gaps": [[n, s] for n, s in summary.idle_gaps]}
     else:
         out["device"] = dev_info
+    out["recovery"] = {k: redo[k] for k in (
+        "attempts", "recoveries", "resumed_pose_gap", "resumed_differ",
+        "lost_at_close")}
+    out["recovery"].update(lost_frames=int(redo["flags"][warmup:].sum()),
+                           resumed_frames=len(redo["resumed"]))
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in checks.items()}
     if control:
@@ -397,6 +407,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         + f"; set-up: {t_dev - t0:.3f} s to the device, stream "
         f"{t_stream - t_dev:.3f} s, warm-up {loop.t_window - t_stream:.3f} s"
         f"; memory peak {mem_peak} B, of it the stream {stream_bytes} B"
+        f"; losses: {out['recovery']['lost_frames']} frames of the window "
+        f"held lost by the reference, {redo['attempts']} relocalization "
+        f"attempts redone, {redo['recoveries']} recoveries, resumed at "
+        f"frames {redo['resumed'][:8]}"
+        f"{'...' if len(redo['resumed']) > 8 else ''}"
         f"; check {t_check:.3f} s")
     return out
 
@@ -455,105 +470,179 @@ def _render(render: str, table, pose, slam: dict, ar):
     return ref_render.view(render, table, keys, words, pose, slam, ar)
 
 
+class _Redo:
+    """One side of the check, the reference (float32) or the control
+    (TF32): its own map table and its redo of the app loop's lost state,
+    keyposes and relocalization attempts, frame by frame. The poses it
+    composes its solves with and fuses by are the program's."""
+
+    def __init__(self, slam: dict, ar, dev):
+        self.slam = slam
+        self.ar = ar
+        self.table = ref_fusion.MapTable(slam, dev)
+        self.lost = False         # the live state's sticky flag
+        self.flags: List[bool] = []   # each frame's flag as its step left it
+        self.keyposes: List[int] = []  # frames whose poses are keyposes
+        self.models: Dict[int, list] = {}  # a candidate frame's model pyramid
+        self.recovered = None     # the pose the next solve starts from
+        self.attempts = 0
+        self.recoveries = 0
+
+    def step(self, j: int, prev, pyr, poses, color) -> Optional[torch.Tensor]:
+        """Frame j's step: its solve against frame j-1, its flag, its fuse.
+        Returns its pose, None where the frame is held lost (or is the
+        first, which keeps the pose the run was given)."""
+        pose = None
+        flag = self.lost        # sticky: a lost frame's solve decides nothing
+        if j > 0 and not flag:
+            T, div = ref_sensor.track(prev, pyr, self.slam, self.ar)
+            flag = bool(div)
+            if not flag:
+                base = (self.recovered if self.flags[j - 1]
+                        else poses[j - 1])
+                pose = self.ar.mm(base, T)
+        self.recovered = None
+        self.lost = flag
+        self.flags.append(flag)
+        if not flag:
+            self.table.fuse(self.table.world_points(pyr[0][0], poses[j],
+                                                    self.ar), color)
+            self.models.clear()
+        return pose
+
+    def consume(self, i: int, live, poses) -> None:
+        """The loop's handling of frame i one frame late, with `live` the
+        pyramid of the last frame stepped: an attempt while the live state
+        is lost, a keypose where frame i tracked."""
+        k = int(self.slam["reloc_candidates"])
+        if self.flags[i]:
+            if self.lost:
+                self.attempts += 1
+                cands = ref_reloc.candidates(self.keyposes, i, k)
+                self.models = {c: self.models.get(c) for c in cands}
+                for c in cands:
+                    if self.models[c] is None:
+                        self.models[c] = ref_reloc.model(
+                            self.table, poses[c], self.slam, self.ar)
+                anchors = [(poses[c], self.models[c]) for c in cands]
+                pose = ref_reloc.attempt(anchors, live, self.slam, self.ar)
+                if pose is not None:
+                    self.lost = False
+                    self.recovered = pose
+                    self.recoveries += 1
+        elif i % int(self.slam["keypose_every"]) == 0:
+            self.keyposes.append(i)
+            del self.keyposes[:-k]
+
+
 def check(cell: Cell, stream, prog: dict, n_run: int, dev,
           control: bool = False):
     """The reference's judgement of the program's outputs. Returns
-    ({number: (value, limit)}, the control's numbers or None).
+    ({number: (value, limit)}, the control's numbers or None, the redo's
+    account of losses: `flags` the reference's lost flag of every frame,
+    `attempts`, `recoveries`, `resumed` the first frame tracked after each
+    recovery, `resumed_pose_gap` and `resumed_differ` the two numbers
+    below over those frames and the frames on which the program resumed,
+    `lost_at_close` whether a loss is still open after the final drain).
 
-    The reference follows the program frame by frame: it redoes every
-    frame's pyramid and ICP solve from the frame's depth and the previous
-    frame's, decides from its own solve whether the frame diverged, and
-    fuses the frames it keeps with the program's pose into its own table.
-    A divergence both sides flag starts a recovery (the program's
-    relocalization, which the reference cannot redo): its frames, up to
-    the first the program no longer flags, are neither fused nor compared,
-    and the pose of that first one rests on the recovered pose.
+    The reference follows the program frame by frame, with the app loop's
+    one-frame lag: it redoes every frame's pyramid and ICP solve from the
+    frame's depth and the previous frame's, holds a frame lost where its
+    solve diverged or the live state already was, and fuses the frames it
+    holds tracking with the program's pose into its own table. After frame
+    j+1's step it handles frame j: while the live state is lost it redoes
+    the relocalization attempt (reference/reloc.py) against its table as
+    it stands, tracking frame j+1's pyramid (an attempt in the final drain
+    tracks the last frame's), until one succeeds; where frame j tracked
+    and j % keypose_every == 0, the program's pose of j is a keypose. The
+    first frame tracked after a recovery composes its solve with the
+    reference's recovered pose.
 
     pose_gap: the largest [R | t] entry gap between the program's pose and
-      the reference's solve composed with the program's previous pose,
-      over every frame the reference follows; the first frame's against
-      the pose the run was given.
-    diverged_differ: frames whose divergence flag differs from the one the
-      reference's own solve gives.
+      the reference's solve composed with the program's previous pose (the
+      reference's recovered pose on the first frame after a recovery),
+      over every frame the reference holds tracking; the first frame's
+      against the pose the run was given.
+    diverged_differ: frames whose lost flag differs from the one the
+      reference's redo gives, the frame where tracking resumes included.
     map_diff_share: leaves that differ in key or word between the
       program's final map and the reference's, over the reference's count.
     render_diff_share: the reference renders its map as it stood at the
       last frame the program rendered, in the cell's mode, from its own
-      pose of that frame (the program's where it follows none); the share
-      of pixels that differ from the program's view by more than an 8-bit
-      level.
+      pose of that frame (the program's where it holds the frame lost);
+      the share of pixels that differ from the program's view by more than
+      an 8-bit level.
     The control is the reference computed in TF32 in the program's place,
-    judged by the same numbers."""
+    judged by the same numbers against the reference."""
     slam = cell.slam
     limits = cell.limits
     n = len(stream)
     poses = torch.from_numpy(prog["poses"]).to(dev)
     diverged = prog["diverged"]
     fb_frame = prog["fb_frame"]
-    sides = [("ref", F32)] + ([("ctrl", TF32)] if control else [])
-    tables = {name: ref_fusion.MapTable(slam, dev) for name, _ in sides}
+    sides = {"ref": _Redo(slam, F32, dev)}
+    if control:
+        sides["ctrl"] = _Redo(slam, TF32, dev)
+    ref = sides["ref"]
     # the start: the first frame keeps the pose the run was given
-    gaps = {name: _pose_gap(poses[0], stream.poses[0]) if name == "ref"
-            else 0.0 for name, _ in sides}
-    differ = {name: 0 for name, _ in sides}
-    view_pose: Dict[str, torch.Tensor] = {}
+    gaps = {"ref": _pose_gap(poses[0], stream.poses[0]), "ctrl": 0.0}
+    resumed, resumed_gap = [], 0.0
     views: Dict[str, torch.Tensor] = {}
-    recovering = False
     prev = None
     for j in range(n_run):
         k = j % n
         pyr = ref_sensor.pyramid(stream.depth[k], slam)
-        if recovering and not diverged[j]:
-            recovering = False       # the program relocalized before j
-            based = False            # j's pose rests on the recovered one
-        else:
-            based = j > 0 and not diverged[j - 1]
-        keep = {name: not recovering for name, _ in sides}
-        if j > 0 and not recovering:
-            ref_pose = None
-            for name, ar in sides:
-                T, div = ref_sensor.track(prev, pyr, slam, ar)
-                div = bool(div)
-                differ[name] += int(div != bool(diverged[j]))
-                keep[name] = not div
-                if div or not based:
-                    continue
-                p = ar.mm(poses[j - 1], T)
-                if name == "ref":
-                    ref_pose = p
-                    gaps["ref"] = max(gaps["ref"], _pose_gap(poses[j], p))
-                elif ref_pose is not None:
-                    gaps["ctrl"] = max(gaps["ctrl"], _pose_gap(p, ref_pose))
-                if j == fb_frame:
-                    view_pose[name] = p
-            recovering = not keep["ref"] and bool(diverged[j])
-        for name, ar in sides:
-            if keep[name]:
-                tables[name].fuse(
-                    tables[name].world_points(pyr[0][0], poses[j], ar),
-                    stream.color[k])
+        got = {name: side.step(j, prev, pyr, poses, stream.color[k])
+               for name, side in sides.items()}
+        if got["ref"] is not None:
+            gap = _pose_gap(poses[j], got["ref"])
+            gaps["ref"] = max(gaps["ref"], gap)
+            if ref.flags[j - 1]:
+                resumed.append(j)
+                resumed_gap = max(resumed_gap, gap)
+            if got.get("ctrl") is not None:
+                gaps["ctrl"] = max(gaps["ctrl"],
+                                   _pose_gap(got["ctrl"], got["ref"]))
         if j == fb_frame:
-            for name, ar in sides:
-                views[name] = _render(cell.render, tables[name],
-                                      view_pose.get(name, poses[j]), slam,
-                                      ar)
+            for name, side in sides.items():
+                view_pose = poses[j] if got[name] is None else got[name]
+                views[name] = _render(cell.render, side.table, view_pose,
+                                      slam, side.ar)
+        if j > 0:
+            for side in sides.values():
+                side.consume(j - 1, pyr, poses)
         prev = pyr
+    for side in sides.values():
+        side.consume(n_run - 1, prev, poses)
 
-    ref = tables["ref"]
-    rkeys, rwords = ref.leaves()
+    ref_flags = np.asarray(ref.flags, bool)
+    differ = ref_flags != diverged[:n_run]
+    # the frames on which either side resumed tracking
+    at_resume = np.zeros_like(ref_flags)
+    at_resume[resumed] = True
+    at_resume[1:] |= diverged[:n_run - 1] & ~diverged[1:n_run]
+    rkeys, rwords = ref.table.leaves()
     n_ref = rkeys.shape[0]
-    numbers = {"pose_gap": gaps["ref"], "diverged_differ": differ["ref"],
-               "map_diff_share": _map_diff(prog["keys"], prog["words"], ref,
-                                           n_ref) / max(n_ref, 1),
+    numbers = {"pose_gap": gaps["ref"], "diverged_differ": int(differ.sum()),
+               "map_diff_share": _map_diff(prog["keys"], prog["words"],
+                                           ref.table, n_ref) / max(n_ref, 1),
                "render_diff_share": _render_diff(prog["framebuffer"],
                                                  views["ref"])}
     ctrl = None
     if control:
-        ckeys, cwords = tables["ctrl"].leaves()
-        ctrl = {"pose_gap": gaps["ctrl"], "diverged_differ": differ["ctrl"],
-                "map_diff_share": _map_diff(ckeys, cwords, ref, n_ref)
+        side = sides["ctrl"]
+        ckeys, cwords = side.table.leaves()
+        ctrl = {"pose_gap": gaps["ctrl"],
+                "diverged_differ": int((np.asarray(side.flags, bool)
+                                        != ref_flags).sum()),
+                "map_diff_share": _map_diff(ckeys, cwords, ref.table, n_ref)
                 / max(n_ref, 1),
                 "render_diff_share": _render_diff(views["ctrl"],
                                                   views["ref"])}
     checks = {k: (v, float(limits[k])) for k, v in numbers.items()}
-    return checks, ctrl
+    redo = {"flags": ref_flags, "attempts": ref.attempts,
+            "recoveries": ref.recoveries, "resumed": resumed,
+            "lost_at_close": ref.lost,
+            "resumed_pose_gap": resumed_gap,
+            "resumed_differ": int((differ & at_resume).sum())}
+    return checks, ctrl, redo

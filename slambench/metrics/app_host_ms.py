@@ -1,7 +1,8 @@
 """Host milliseconds a traced frame spends in the app loop outside the
-step's stages: the loop's period minus the program's step.* ranges
-(run_slam's signal-slot read and `consume`: growth, relocalization, the
-trajectory bookkeeping; and the frame handed in by frame_fn)."""
+step's stages and the relocalization: the loop's period minus the
+program's step.* and app.reloc ranges (run_slam's signal-slot read and
+`consume`: growth, the trajectory bookkeeping; and the frame handed in by
+frame_fn)."""
 
 
 def read(t):

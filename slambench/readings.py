@@ -5,9 +5,14 @@ with --faults the program's numbers with each named fault of
 slambench/faults.py planted under the timed path.
 
     python3 slambench/readings.py --workload <cell> --seeds 1,2,3 \
-        --seconds 51 [--faults half_frame,moved_pose] [--out readings.jsonl]
+        --seconds 51 [--faults half_frame,moved_pose] [--out readings.jsonl] \
+        [--traffic '{"kind": "dropout", "blank_every": 30, "blank_frames": 3}']
 
-The benchmark's own runs never run the control. Needs a CUDA device.
+--traffic merges a JSON object into the cell's traffic mix: a mix that no
+cell of BENCHMARK.json runs yet, on that cell's configuration and limits.
+--frames closes each window after that many frames (or its seconds,
+whichever comes first); --no-control runs the program alone. The
+benchmark's own runs never run the control. Needs a CUDA device.
 """
 
 import argparse
@@ -26,6 +31,10 @@ def main(argv=None) -> int:
     ap.add_argument("--faults", default="",
                     help="comma-separated names of slambench/faults.py")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--traffic", default=None,
+                    help="a JSON object merged into the cell's traffic mix")
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--no-control", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -34,6 +43,8 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     cell = harness.load_cell(args.workload, ROOT)
+    if args.traffic:
+        cell.traffic = dict(cell.traffic, **json.loads(args.traffic))
     names = [f for f in args.faults.split(",") if f]
     unknown = set(names) - set(faults.FAULTS)
     if unknown:
@@ -44,7 +55,7 @@ def main(argv=None) -> int:
     for fault in names or [None]:
         for seed in (int(s) for s in args.seeds.split(",")):
             rows.append(_reading(harness, faults, cell, seed, args.seconds,
-                                 fault))
+                                 fault, args.frames, not args.no_control))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "a") as f:
@@ -53,16 +64,19 @@ def main(argv=None) -> int:
     return 0
 
 
-def _reading(harness, faults, cell, seed, seconds, fault):
+def _reading(harness, faults, cell, seed, seconds, fault, frames, control):
     log = lambda m: print(m, file=sys.stderr)  # noqa: E731
     if fault is None:
-        out = harness.run_cell(cell, seed, seconds, False, control=True,
-                               log=log)
+        out = harness.run_cell(cell, seed, seconds, False, control=control,
+                               max_frames=frames, log=log)
     else:
         with faults.planted(fault):
-            out = harness.run_cell(cell, seed, seconds, False, log=log)
+            out = harness.run_cell(cell, seed, seconds, False,
+                                   max_frames=frames, log=log)
     row = {"workload": cell.name, "seed": seed, "fault": fault,
-           "attempted": out["attempted"], "correct": out["correct"],
+           "traffic": cell.traffic.get("kind", "orbit"),
+           "attempted": out["attempted"], "failed": out["failed"],
+           "correct": out["correct"], "recovery": out["recovery"],
            "program": {k: c["value"] for k, c in out["checks"].items()},
            "control": out.get("control"),
            "metrics": {k: m["value"] for k, m in out["metrics"].items()}}

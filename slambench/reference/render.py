@@ -59,9 +59,11 @@ def _unrgb565(v):
     return (r5 << 3) | (r5 >> 2), (g6 << 2) | (g6 >> 4), (b5 << 3) | (b5 >> 2)
 
 
-def splat(keys, words, center, half_size, pose, slam: dict,
-          ar: Arith) -> torch.Tensor:
-    """f32[H, W, 4] splat view of the leaves (keys, words) from `pose`."""
+def splat_zbuffer(keys, words, center, half_size, pose, slam: dict,
+                  ar: Arith) -> torch.Tensor:
+    """i32[H, W] packed (depth q15 << 16 | rgb565) words of the leaves
+    (keys, words) seen from `pose`: each occupied leaf's centre at its
+    nearest pixel, the nearest by a scatter-min, DEPTH_INF where none."""
     W, H = slam["width"], slam["height"]
     fx, fy = slam["focal_x"], slam["focal_y"]
     max_range = slam["max_range"]
@@ -83,14 +85,28 @@ def splat(keys, words, center, half_size, pose, slam: dict,
                      device=words.device)
     buf.scatter_reduce_(0, idx.to(torch.int64),
                         torch.where(inb, word, DEPTH_INF), reduce="amin")
-    img = buf[:n].reshape(H, W)
-    for _ in range(2):
+    return buf[:n].reshape(H, W)
+
+
+def fill_holes(img: torch.Tensor, rounds: int) -> torch.Tensor:
+    """`rounds` rounds of 3x3 hole filling: a DEPTH_INF pixel takes the
+    least word of its neighbourhood (outside the image is DEPTH_INF)."""
+    H, W = img.shape
+    for _ in range(rounds):
         pad = F.pad(img, (1, 1, 1, 1), value=DEPTH_INF)
         best = img
         for dy in range(3):
             for dx in range(3):
                 best = torch.minimum(best, pad[dy:dy + H, dx:dx + W])
         img = torch.where(img == DEPTH_INF, best, img)
+    return img
+
+
+def splat(keys, words, center, half_size, pose, slam: dict,
+          ar: Arith) -> torch.Tensor:
+    """f32[H, W, 4] splat view of the leaves (keys, words) from `pose`."""
+    img = fill_holes(splat_zbuffer(keys, words, center, half_size, pose, slam,
+                                   ar), 2)
     hit = img != DEPTH_INF
     rr, gg, bb = _unrgb565(torch.where(hit, img, 0) & 0xFFFF)
     rgb = torch.stack([rr, gg, bb], dim=-1).to(torch.float32) / 255.0

@@ -215,11 +215,20 @@ def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def track(last: List[Level], cur: List[Level], slam: dict, ar: Arith):
     """Coarse-to-fine ICP of the current frame's pyramid against the last
     one's, from the identity: (cam_{t-1}_T_cam_t f32[4, 4], diverged)."""
+    T, diverged, _ = track_inliers(last, cur, slam, ar)
+    return T, diverged
+
+
+def track_inliers(last: List[Level], cur: List[Level], slam: dict,
+                  ar: Arith):
+    """`track`, and the finest level's inlier count i32[] at its last
+    iteration (the program's TrackStats.inliers[-1])."""
     dev = cur[0][0].device
     T = torch.eye(4, dtype=torch.float32, device=dev)
     diverged = torch.zeros((), dtype=torch.bool, device=dev)
     zero = torch.zeros(6, dtype=torch.float32, device=dev)
     iters = slam["pyramid_iters"]
+    count = None
     for level in range(slam["pyramid_depth"] - 1, -1, -1):
         v1, n1 = last[level]
         cv, cn = cur[level]
@@ -231,4 +240,4 @@ def track(last: List[Level], cur: List[Level], slam: dict, ar: Arith):
             bad = ~torch.isfinite(x).all() | (count < 6)
             T = ar.mm(exp_se3(torch.where(bad, zero, x), ar), T)
             diverged = diverged | bad
-    return T, diverged
+    return T, diverged, count

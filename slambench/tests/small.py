@@ -1,33 +1,14 @@
 """A cell of the benchmark cut to a size the CPU runs in seconds: 160x120
 frames, depth 7 at 4 cm, a 40-frame loop, 2 warm-up frames. Only for the
-tests: the benchmark's cells are never cut.
-
-`room2cm_hybrid.orbit` is not a cell of BENCHMARK.json (its frame rate
-spreads too far from run to run on the card; PERF.md, Open questions),
-but its configuration and the reference's hybrid view stay, tested here
-as the orbit cell with that configuration and the splat cell's limits."""
-
-import json
+tests: the benchmark's cells are never cut."""
 
 from slambench import harness
 
 SEED = 3141592653
-KEPT = {"room2cm_hybrid.orbit": "room2cm_hybrid"}
-
-
-def cell(name: str) -> harness.Cell:
-    """The benchmark's cell `name`, or one of the kept configurations'."""
-    if name not in KEPT:
-        return harness.load_cell(name)
-    base = harness.load_cell("kinect1cm_splat.orbit")
-    path = harness.BENCH_DIR / "configs" / f"{KEPT[name]}.json"
-    base.name = name
-    base.config = json.loads(path.read_text())
-    return base
 
 
 def small_cell(name: str = "kinect1cm_splat.orbit") -> harness.Cell:
-    c = cell(name)
+    c = harness.load_cell(name)
     slam = dict(c.slam)
     slam.update(width=160, height=120, focal_x=532.57 / 4,
                 focal_y=531.54 / 4, voxel_resolution=0.04, max_depth=7,

@@ -88,8 +88,12 @@ def test_last_line_keys(traced):
     keys = set(out)
     # `checks` carries each number compared beside its limit, last
     assert list(out)[-1] == "checks"
-    assert keys == LINE_KEYS | {"checks"} | ({"breakdown"} if traced
-                                             else set())
+    assert keys == LINE_KEYS | {"recovery", "checks"} | (
+        {"breakdown"} if traced else set())
+    assert out["recovery"] == {"attempts": 0, "recoveries": 0,
+                               "resumed_pose_gap": 0.0, "resumed_differ": 0,
+                               "lost_at_close": False, "lost_frames": 0,
+                               "resumed_frames": 0}
     assert out["correct"] is True and out["failed"] == 0
     assert out["attempted"] == 6
     assert set(out["device"]) >= {"platform", "kind", "count",

@@ -6,10 +6,12 @@ runs from the start of the first traced frame's first step range
 (`FRAME_RANGE`, step.pyramid) to the start of the last one's: whole loop
 periods, each from one step's start to the next's. Host time of a range
 is the summed duration of the program's `record_function` ranges of that
-name (the step's stages: step.pyramid, step.track, step.heal, step.fuse,
-step.render). A kernel's device time is credited to the range its launch
-was issued in, through the launch-to-kernel correlation id the profiler
-records. The device is busy where any kernel, copy or fill runs.
+name: the step's stages (step.pyramid, step.track, step.heal, step.fuse,
+step.render, step.band) and the app loop's relocalization attempt
+(app.reloc, which runs between two steps). A kernel's device time is
+credited to the range its launch was issued in, through the
+launch-to-kernel correlation id the profiler records. The device is busy
+where any kernel, copy or fill runs.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 FRAME_RANGE = "step.pyramid"
 STEP_PREFIX = "step."
+OTHER_RANGES = ("app.reloc",)   # credited as the step's ranges are
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -81,7 +84,8 @@ def summarize(trace: dict, slam: dict, top: int = 10) -> TraceSummary:
     ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                      e["name"]) for e in events
                     if e.get("cat") == "user_annotation"
-                    and e.get("name", "").startswith(STEP_PREFIX)
+                    and (e.get("name", "").startswith(STEP_PREFIX)
+                         or e.get("name") in OTHER_RANGES)
                     and w0 <= float(e["ts"]) < w1)
     starts = [r[0] for r in ranges]
     host: Dict[str, float] = {}
